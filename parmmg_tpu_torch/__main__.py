@@ -1,13 +1,15 @@
 """CLI: `python -m parmmg_tpu_torch input.mesh [-sol met.sol] [options]
 [-out out.mesh]`.
 
-Counterpart of the centralized path of `parmmg_tpu/__main__.py`, with the
-same flag names: load → adapt on the GPU → save, printing the
-reference-style quality and edge-length histograms. Flags of paths this
-slice of the port does not carry (distributed runs, fields, level-set,
-VTK, checkpoints, renumbering, partitioning, load balancing, frontier
-sweeps) are accepted by the parser and refused with `NotImplementedError`
-naming the ROADMAP item that brings them.
+Counterpart of `parmmg_tpu/__main__.py` for centralized input and output,
+with the same flag names: load → adapt on the GPU → save, printing the
+reference-style quality and edge-length histograms. `-nparts N
+-nobalance` adapts on N stacked shards with frozen interfaces and writes
+the merged mesh. Flags of paths this slice of the port does not carry
+(balancing between iterations, distributed I/O, fields, level-set, VTK,
+checkpoints, renumbering, partitioning output) are accepted by the parser
+and refused with `NotImplementedError` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m parmmg_tpu_torch",
         description="GPU parallel tetrahedral remesher (PyTorch/CUDA port "
-        "of parmmg_tpu, centralized adaptation)",
+        "of parmmg_tpu)",
     )
     p.add_argument("input", nargs="?", default=None,
                    help="input .mesh (Medit ASCII)")
@@ -78,14 +80,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-niter", type=int, default=3,
                    help="outer remesh iterations")
     p.add_argument("-nparts", type=int, default=1,
-                   help="number of shards (only 1 is ported)")
-    p.add_argument("-nobalance", dest="nobalancing", action="store_true")
+                   help="number of shards, stacked on the one device "
+                   "(above 1 only with -nobalance so far)")
+    p.add_argument("-nobalance", dest="nobalancing", action="store_true",
+                   help="no resharding between iterations (frozen "
+                   "interfaces)")
     p.add_argument("-balance", dest="balance_band", type=float,
                    default=None)
     p.add_argument("-nlayers", dest="ifc_layers", type=int, default=None)
     p.add_argument("-groups-ratio", dest="grps_ratio", type=float,
                    default=None)
-    p.add_argument("-mesh-size", dest="mesh_size", type=int, default=None)
+    p.add_argument("-mesh-size", dest="mesh_size", type=int, default=None,
+                   help="minimum elements per shard before the run is "
+                   "distributed (smaller meshes grow on one shard first)")
     p.add_argument("-pure-partitioning", action="store_true")
     p.add_argument("-distributed-output", dest="dist_out",
                    action="store_true")
@@ -104,26 +111,21 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of paths not in this slice: (flag, dest, "is set" test, ROADMAP
 # item that brings it)
 _REFUSED = (
-    ("-nparts", "nparts", lambda v: v != 1,
-     "queue 1, items 12-13 (distributed)"),
     ("-distributed-output", "dist_out", bool,
      "queue 1, item 12 (distributed I/O)"),
     ("-distributed-input", "dist_in", bool,
      "queue 1, item 12 (distributed I/O)"),
     ("-pure-partitioning", "pure_partitioning", bool,
-     "queue 1, item 12 (partitioning)"),
+     "queue 1, item 12 (partitioning output)"),
     ("-rn", "renumber", bool, "queue 1, item 12 (SFC renumbering)"),
-    ("-nobalance", "nobalancing", bool, "queue 1, item 12 (load balancing)"),
     ("-balance", "balance_band", lambda v: v is not None,
-     "queue 1, item 12 (load balancing)"),
+     "queue 1, item 10 (load balancing)"),
     ("-nlayers", "ifc_layers", lambda v: v is not None,
-     "queue 1, item 12 (interface displacement)"),
+     "queue 1, item 10 (interface displacement)"),
     ("-groups-ratio", "grps_ratio", lambda v: v is not None,
-     "queue 1, item 12 (repartitioning)"),
-    ("-mesh-size", "mesh_size", lambda v: v is not None,
-     "queue 1, item 12 (per-shard sizing)"),
+     "queue 1, item 10 (repartitioning)"),
     ("-field", "field", lambda v: v is not None,
-     "queue 1, item 11 (interpolation, interp_bary)"),
+     "queue 1, item 11 (interp_fields_only)"),
     ("-ls", "ls", lambda v: v is not None, "queue 1, item 11 (level set)"),
     ("-ckpt", "ckpt", lambda v: v is not None,
      "queue 1, item 15 (checkpoint/resume)"),
@@ -139,6 +141,12 @@ def _refuse_unported(args) -> None:
         if is_set(getattr(args, dest)):
             raise NotImplementedError(
                 f"{flag}: not ported yet — ROADMAP {item} brings it")
+    if args.nparts > 1 and not args.nobalancing:
+        raise NotImplementedError(
+            f"-nparts {args.nparts} without -nobalance: the balancing "
+            "between iterations is not ported yet — ROADMAP queue 1, "
+            "item 10 (interface displacement and graph balancing) brings "
+            "it; add -nobalance for frozen interfaces")
     for path in (args.input, args.out):
         if path and path.endswith((".vtu", ".pvtu")):
             raise NotImplementedError(
@@ -181,7 +189,9 @@ def main(argv=None, device=None) -> int:
 
     from . import resolve_device
     from .io import medit, parsop
-    from .models.adapt import AdaptOptions, adapt
+    from .models.adapt import adapt
+    from .models.distributed import (DistOptions, adapt_distributed,
+                                     merge_adapted)
     from .ops import quality
     from .utils.timing import Timers
 
@@ -206,7 +216,7 @@ def main(argv=None, device=None) -> int:
         if args.verbose >= 1:
             print(f"  %% {pf}: {len(local_params)} local parameter(s)")
 
-    opts = AdaptOptions(
+    opts = DistOptions(
         niter=args.niter,
         hsiz=args.hsiz, hmin=args.hmin, hmax=args.hmax,
         hgrad=hgrad, hgradreq=hgradreq, hausd=args.hausd, angle=angle,
@@ -215,15 +225,27 @@ def main(argv=None, device=None) -> int:
         noinsert=args.noinsert, noswap=args.noswap, nomove=args.nomove,
         nosurf=args.nosurf, opnbdy=args.opnbdy, verbose=args.verbose,
         mem_budget_mb=args.mem, frontier=False,
+        nparts=args.nparts, nobalancing=args.nobalancing,
+        min_shard_elts=args.mesh_size or DistOptions.min_shard_elts,
     )
 
     with timers.phase("input"):
         mesh = medit.load_mesh(args.input, args.sol, device=device)
 
     with timers.phase("remeshing"):
-        mesh_out, info = adapt(mesh, opts, device=device)
+        if args.nparts > 1:
+            stacked, comm, info = adapt_distributed(mesh, opts,
+                                                    device=device)
+        else:
+            # DistOptions extends AdaptOptions: the single-shard driver
+            # ignores the distribution fields
+            mesh_out, info = adapt(mesh, opts, device=device)
 
     if args.verbose >= 1:
+        for rec in info["history"]:
+            if "failure" in rec:
+                print(f"  ## iteration {rec['iter']} rolled back "
+                      f"({rec['error']}): {rec['failure']}")
         print(quality.format_histogram(info["qual_in"],
                                        "INPUT MESH QUALITY"))
         print(quality.format_histogram(info["qual_out"],
@@ -232,6 +254,8 @@ def main(argv=None, device=None) -> int:
 
     if not args.noout:
         with timers.phase("output"):
+            if args.nparts > 1:
+                mesh_out = merge_adapted(stacked, comm)
             medit.save_mesh(mesh_out, out)
             medit.save_met(mesh_out, medit.met_filename(out))
     timers.report()

@@ -96,9 +96,13 @@ def interp_metric(mets, bary):
     """Barycentric metric interpolation: harmonic in h (iso), the
     log-Euclidean mean (aniso)."""
     if mets.shape[-1] == 1:
-        inv = torch.sum(bary[..., None] / torch.clamp(mets, min=1e-30),
-                        dim=-2)
-        return 1.0 / torch.clamp(inv, min=1e-30)
+        # the sum over the corners left to right, as XLA reduces it, so
+        # the result does not depend on the device's reduction order
+        w = bary[..., None] / torch.clamp(mets, min=1e-30)
+        inv = w[..., 0, :]
+        for k in range(1, w.shape[-2]):
+            inv = inv + w[..., k, :]
+        return torch.ones_like(inv) / torch.clamp(inv, min=1e-30)
     logs = log_sym6(mets)
     mean = torch.sum(bary[..., None] * logs, dim=-2)
     return exp_sym6(mean)

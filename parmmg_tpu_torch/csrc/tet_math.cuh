@@ -35,21 +35,27 @@ __device__ __forceinline__ void load_corners(const T* __restrict__ vert,
   }
 }
 
-// ((c1-c0) x (c2-c0)) . (c3-c0) / 6
+// (b-a) x (d-a) . (e-a): six times the signed volume of (a, b, d, e)
 template <typename T>
-__device__ __forceinline__ T tet_vol(const T c[4][3]) {
+__device__ __forceinline__ T vol6(const T a[3], const T b[3], const T d[3],
+                                  const T e[3]) {
   T d1[3], d2[3], d3[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    d1[j] = c[1][j] - c[0][j];
-    d2[j] = c[2][j] - c[0][j];
-    d3[j] = c[3][j] - c[0][j];
+    d1[j] = b[j] - a[j];
+    d2[j] = d[j] - a[j];
+    d3[j] = e[j] - a[j];
   }
   T x = d1[1] * d2[2] - d1[2] * d2[1];
   T y = d1[2] * d2[0] - d1[0] * d2[2];
   T z = d1[0] * d2[1] - d1[1] * d2[0];
-  T s = (x * d3[0] + y * d3[1]) + z * d3[2];
-  return s / T(6);
+  return (x * d3[0] + y * d3[1]) + z * d3[2];
+}
+
+// ((c1-c0) x (c2-c0)) . (c3-c0) / 6
+template <typename T>
+__device__ __forceinline__ T tet_vol(const T c[4][3]) {
+  return vol6(c[0], c[1], c[2], c[3]) / T(6);
 }
 
 __constant__ int EV[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};

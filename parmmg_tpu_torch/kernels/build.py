@@ -10,7 +10,8 @@ its own `nvcc`, all started together, then links the objects.
 
 Every wrapper adds one to `LAUNCHES[name]` where it launches its kernel
 and nowhere else, and records the launch's (stream rows, table rows) in
-`SHAPES[name]`; `reset_launches()` zeroes both.
+`SHAPES[name]` — (rows per shard, table rows per shard, shards) for a
+stacked launch; `reset_launches()` zeroes both.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel sources under csrc/
-SOURCES = ("quality_vol", "collapse_cavity", "split_midpoint")
+SOURCES = ("quality_vol", "collapse_cavity", "split_midpoint", "interp_bary")
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
@@ -46,16 +47,23 @@ BUILD_LOGS: dict = {}
 _LIB = None
 
 
+class KernelError(Exception):
+    """A kernel failed to build or to launch. Not a RuntimeError, so the
+    drivers' rollback to the last good iteration never absorbs it."""
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SHAPES.clear()
 
 
-def count(name: str, rows: int, table_rows: int) -> None:
-    """Book one launch of kernel `name` over `rows` stream rows."""
+def count(name: str, rows: int, table_rows: int, shards=None) -> None:
+    """Book one launch of kernel `name` over `rows` stream rows (per
+    shard, for a stacked launch over `shards` shards)."""
     LAUNCHES[name] += 1
-    SHAPES[name] = (rows, table_rows)
+    SHAPES[name] = ((rows, table_rows) if shards is None
+                    else (rows, table_rows, shards))
 
 
 def nvcc_path() -> str:
@@ -63,7 +71,7 @@ def nvcc_path() -> str:
     if p is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         p = "/usr/local/cuda/bin/nvcc"
     if p is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found: the CUDA kernels of parmmg_tpu_torch are "
             "built from csrc/ at first use and need the CUDA toolkit"
         )
@@ -85,7 +93,7 @@ def _run(procs: dict) -> None:
     logs = {n: p.communicate()[0] for n, p in procs.items()}
     failed = [n for n, p in procs.items() if p.returncode != 0]
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
+        raise KernelError("nvcc failed:\n" + "\n".join(
             f"--- {n}\n{logs[n]}" for n in failed))
     BUILD_LOGS.update(logs)
 
@@ -123,6 +131,8 @@ SIGNATURES = {
     "collapse_cavity": (_P, _P, _I, _I, _P, _P, _L, _D, _P, _P),
     # vert, P, tet, newp, li, lj, n, frac, ok, stream
     "split_midpoint": (_P, _I, _P, _P, _P, _P, _L, _D, _P, _P),
+    # vert, met, P, vids, pts, D, Q, bary, met_q, stream
+    "interp_bary": (_P, _P, _I, _P, _P, _L, _L, _P, _P, _P),
 }
 
 
@@ -142,7 +152,7 @@ def function(name: str, dtype):
 def check(rc: int, name: str) -> None:
     """Raise if a launch reported a CUDA error (`cudaGetLastError`)."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+        raise KernelError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
 
 

@@ -400,43 +400,65 @@ def _rec_in_band(rec: dict) -> dict:
     return rec
 
 
-def run_batched_sweep_loop(mesh: Mesh, opts: AdaptOptions,
-                           emult: List[float], history: List[dict],
-                           it: int, hausd) -> Mesh:
-    """Sweep to convergence: capacity growth between sweeps, unique-edge
-    cap overflow handling (with a bounded budget extension) and the
-    `converge_frac` stopping rule."""
+def run_sweep_loop(state, opts: AdaptOptions, emult: List[float],
+                   history: List[dict], it: int, ensure_fn, tcap_fn,
+                   sweep_fn):
+    """Sweep-to-convergence engine shared by the single-shard and the
+    stacked drivers: capacity growth between sweeps, unique-edge cap
+    overflow handling (with a bounded budget extension) and the
+    `converge_frac` stopping rule.
+
+    `ensure_fn(state) -> state` grows capacities; `tcap_fn(state)` is the
+    tet capacity the unique-edge cap follows; `sweep_fn(state, ecap) ->
+    (state, rec)` runs one sweep and returns its host record (nsplit,
+    ncollapse, nswap, nmoved, ne, np summed over shards, n_unique the
+    largest, capped any)."""
+    sweep = 0
     budget = opts.max_sweeps
-    done = 0
-    while done < budget:
-        mesh = ensure_capacity(mesh, opts)
-        ecap = int(mesh.tcap * emult[0]) + 64
-        mesh, stats = _sweep_body(
-            mesh, ecap, noinsert=opts.noinsert, noswap=opts.noswap,
-            nomove=opts.nomove, nosurf=opts.nosurf, hausd=hausd,
-        )
-        rec = _rec_in_band(_hist_row(stats, mesh))
-        rec.update(iter=it, sweep=done)
+    while sweep < budget:
+        state = ensure_fn(state)
+        ecap = int(tcap_fn(state) * emult[0]) + 64
+        state, rec = sweep_fn(state, ecap)
+        _rec_in_band(rec)
+        overflow = rec["n_unique"] > ecap
+        if overflow:
+            # unique_edges dropped edges this sweep: grow the cap and
+            # give the lost coverage a sweep back
+            emult[0] = max(emult[0] * 1.5,
+                           1.1 * rec["n_unique"] / max(tcap_fn(state), 1))
+            if budget < opts.max_sweeps + 4:
+                budget += 1
+        rec.update(iter=it, sweep=sweep)
         history.append(rec)
         if opts.verbose >= 2:
             print(
-                f"  it {it} sweep {rec['sweep']}: +{rec['nsplit']} "
-                f"split -{rec['ncollapse']} collapse {rec['nswap']} "
-                f"swap {rec['nmoved']} moved -> ne={rec['ne']}",
+                f"  it {it} sweep {sweep}: +{rec['nsplit']} split "
+                f"-{rec['ncollapse']} collapse {rec['nswap']} swap "
+                f"{rec['nmoved']} moved -> ne={rec['ne']}",
                 flush=True,
             )
-        overflow = rec["n_unique"] > ecap
-        if overflow:
-            emult[0] = max(emult[0] * 1.5,
-                           1.1 * rec["n_unique"] / max(mesh.tcap, 1))
-            if budget < opts.max_sweeps + 4:
-                budget += 1
-        done += 1
         nops = rec["nsplit"] + rec["ncollapse"] + rec["nswap"]
         if (not rec["capped"] and not overflow
                 and nops <= opts.converge_frac * max(rec["ne"], 1)):
             break
-    return mesh
+        sweep += 1
+    return state
+
+
+def run_batched_sweep_loop(mesh: Mesh, opts: AdaptOptions,
+                           emult: List[float], history: List[dict],
+                           it: int, hausd) -> Mesh:
+    """The single-shard sweep loop: `run_sweep_loop` over `_sweep_body`."""
+    def sweep_fn(m, ecap):
+        m, stats = _sweep_body(
+            m, ecap, noinsert=opts.noinsert, noswap=opts.noswap,
+            nomove=opts.nomove, nosurf=opts.nosurf, hausd=hausd,
+        )
+        return m, _hist_row(stats, m)
+
+    return run_sweep_loop(mesh, opts, emult, history, it,
+                          ensure_fn=lambda m: ensure_capacity(m, opts),
+                          tcap_fn=lambda m: m.tcap, sweep_fn=sweep_fn)
 
 
 def _hist_key(h):
@@ -484,12 +506,15 @@ def sanity_counts(mesh: Mesh) -> torch.Tensor:
     return torch.stack([bad_v, bad_m, n_inv, n_oob])
 
 
-def validate(mesh: Mesh, opts: AdaptOptions, it: int) -> None:
-    """Phase-boundary validation at `opts.validate` level; raises
+def validate(mesh, opts: AdaptOptions, it: int) -> None:
+    """Phase-boundary validation at `opts.validate` level of a mesh or a
+    list of shards (counts summed over the shards); raises
     `NumericalError`."""
     if opts.validate == "off":
         return
-    rep = [int(v) for v in sanity_counts(mesh).tolist()]
+    shards = mesh if isinstance(mesh, list) else [mesh]
+    rep = [int(v) for v in
+           torch.stack([sanity_counts(m) for m in shards]).sum(0).tolist()]
     if any(rep):
         raise NumericalError(
             f"phase-boundary validation failed after remesh (it {it}): "
@@ -515,8 +540,8 @@ def adapt(mesh: Mesh, opts: AdaptOptions | None = None, device=None,
     if mesh.fields.shape[1] + mesh.ls.shape[1] + mesh.disp.shape[1]:
         raise NotImplementedError(
             "meshes carrying solution fields, a level-set or a "
-            "displacement need the interpolation post-pass, which comes "
-            "with interp_bary (ROADMAP queue 1, item 11)"
+            "displacement need the fields post-pass (interp_fields_only), "
+            "which ROADMAP queue 1, item 11 brings"
         )
     mesh = mesh.to(device)
     if opts.mem_budget_mb is None:

@@ -45,6 +45,8 @@ class QualityHisto:
     nbad: torch.Tensor
     ninverted: torch.Tensor
     counts: torch.Tensor
+    # shard of the worst element in a merged stacked histogram, else -1
+    worst_shard: object = -1
 
 
 def quality_histogram(mesh: Mesh, nbins: int = 5) -> QualityHisto:
@@ -66,6 +68,25 @@ def quality_histogram(mesh: Mesh, nbins: int = 5) -> QualityHisto:
     return QualityHisto(ne, qmin, qmax, qavg, worst, nbad, ninv, counts)
 
 
+def merge_stacked_histograms(hs) -> QualityHisto:
+    """One world histogram from the per-shard histograms `hs` (a list):
+    sums, extrema, the element-weighted mean, and the worst element of
+    the lowest shard holding the minimum."""
+    st = {f.name: torch.stack([getattr(h, f.name) for h in hs])
+          for f in dataclasses.fields(QualityHisto)
+          if f.name != "worst_shard"}
+    ne = st["ne"].sum()
+    worst_shard = torch.argmin(st["qmin"])
+    return QualityHisto(
+        ne=ne, qmin=st["qmin"].min(), qmax=st["qmax"].max(),
+        qavg=(st["qavg"] * st["ne"].to(st["qavg"].dtype)).sum()
+        / torch.clamp(ne, min=1).to(st["qavg"].dtype),
+        worst_elt=st["worst_elt"][worst_shard], nbad=st["nbad"].sum(),
+        ninverted=st["ninverted"].sum(), counts=st["counts"].sum(dim=0),
+        worst_shard=worst_shard,
+    )
+
+
 def _finite_or_dash(v, fmt: str = "8.6f") -> str:
     v = float(v)
     return format(v, fmt) if math.isfinite(v) else "   --   "
@@ -78,7 +99,9 @@ def format_histogram(h: QualityHisto, label: str = "MESH QUALITY") -> str:
     lines = [
         f"  -- {label}  {int(h.ne)} elements",
         f"     BEST {_finite_or_dash(h.qmax)}  AVRG {_finite_or_dash(h.qavg)} "
-        f" WRST {_finite_or_dash(h.qmin)} (elt {int(h.worst_elt)})",
+        f" WRST {_finite_or_dash(h.qmin)} (elt {int(h.worst_elt)}"
+        + (f" on shard {int(h.worst_shard)})" if int(h.worst_shard) >= 0
+           else ")"),
     ]
     ne = max(int(h.ne), 1)
     for k in reversed(range(n)):
@@ -145,6 +168,21 @@ def mesh_length_stats(mesh: Mesh, ecap: int | None = None) -> LengthStats:
         ecap = int(mesh.tcap * 1.7) + 64
     edges, emask, _, _ = adjacency.unique_edges(mesh, ecap)
     return length_stats(mesh, edges, emask)
+
+
+def merge_stacked_length_stats(ls_list) -> LengthStats:
+    """One world edge-length record from the per-shard records (a
+    list), as `merge_stacked_histograms` merges histograms."""
+    st = {f.name: torch.stack([getattr(x, f.name) for x in ls_list])
+          for f in dataclasses.fields(LengthStats)}
+    ne = st["nedge"].sum()
+    return LengthStats(
+        nedge=ne, lmin=st["lmin"].min(), lmax=st["lmax"].max(),
+        lavg=(st["lavg"] * st["nedge"].to(st["lavg"].dtype)).sum()
+        / torch.clamp(ne, min=1).to(st["lavg"].dtype),
+        n_small=st["n_small"].sum(), n_large=st["n_large"].sum(),
+        n_unit=st["n_unit"].sum(), counts=st["counts"].sum(dim=0),
+    )
 
 
 def in_band_fraction(ls: LengthStats) -> float:

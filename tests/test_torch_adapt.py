@@ -186,7 +186,7 @@ UNPORTED_OPTIONS = [
 UNPORTED_FLAGS = [
     ["-nparts", "2"], ["-distributed-output"], ["-distributed-input"],
     ["-field", "f.sol"], ["-ls"], ["-ckpt", "ck"], ["-ckpt-every", "2"],
-    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"], ["-nobalance"],
+    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"],
     ["-balance", "1.2"], ["-out", "o.vtu"],
 ]
 

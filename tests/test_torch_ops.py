@@ -14,6 +14,7 @@ floor for values that cancel to ~0: the reference rounds under XLA's
 multiply-add contraction, the port rounds every operation.
 """
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -50,13 +51,17 @@ np.savez(sys.argv[3], **ns[sys.argv[4]](*sys.argv[5:]))
 """
 
 
-def start_jax_side(test_file, fn_name: str, out_dir, *calls):
+def start_jax_side(test_file, fn_name: str, out_dir, *calls,
+                   xla_flags: str = ""):
     """Start `fn_name(*args)` of the module `test_file` for each tuple
     `args` in `calls`, each in a child process of its own that imports
-    JAX as tests/conftest.py sets it up. Returns `wait()`, which waits
-    for them all and returns the union of the dicts of numpy arrays they
-    build."""
+    JAX as tests/conftest.py sets it up (with `xla_flags` added to
+    XLA_FLAGS). Returns `wait()`, which waits for them all and returns
+    the union of the dicts of numpy arrays they build."""
     out_dir = pathlib.Path(out_dir)
+    env = dict(os.environ)
+    if xla_flags:
+        env["XLA_FLAGS"] = f"{env.get('XLA_FLAGS', '')} {xla_flags}".strip()
     procs = []
     for i, args in enumerate(calls):
         out, log = out_dir / f"{fn_name}{i}.npz", out_dir / f"{fn_name}{i}.log"
@@ -65,7 +70,7 @@ def start_jax_side(test_file, fn_name: str, out_dir, *calls):
                 [sys.executable, "-c", _CHILD,
                  str(ROOT / "tests" / "conftest.py"), str(test_file),
                  str(out), fn_name, *map(str, args)],
-                cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT)))
+                cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT)))
 
     def wait() -> dict:
         ref = {}
@@ -78,9 +83,9 @@ def start_jax_side(test_file, fn_name: str, out_dir, *calls):
     return wait
 
 
-def jax_side(test_file, fn_name: str, out_dir, *calls) -> dict:
+def jax_side(test_file, fn_name: str, out_dir, *calls, **kw) -> dict:
     """`start_jax_side(...)`, waited for."""
-    return start_jax_side(test_file, fn_name, out_dir, *calls)()
+    return start_jax_side(test_file, fn_name, out_dir, *calls, **kw)()
 
 
 def put_mesh(out: dict, key: str, jm) -> None:
