@@ -8,7 +8,11 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
 
 1. print the card (`nvidia-smi` name and power limit) and build the CUDA
    kernels of `parmmg_tpu_torch/csrc/` (one `nvcc` per source, all
-   started together, linked into one library);
+   started together, linked into one library); the compiler's
+   `-Xptxas -v` log must show no spills for the tile-loop kernels
+   (quality_vol, collapse_cavity), and their loop in the SASS no
+   local-memory access; registers and static shared memory are printed
+   (no launch takes dynamic shared memory);
 2. centralized path: write the structured unit cube 12^3 with the port's
    Medit writer and run the port's CLI on it (`-hsiz 0.04 -niter 1 -hgrad
    0`, the n12-hsiz0.04 rung of bench.py), with every kernel launch
@@ -34,8 +38,14 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    shard of the merged output of 2c; interp_bary over D shards of that
    output) in f32 and f64, with iso (C=1)
    and seeded SPD tensor (C=6) metrics where the kernel takes them;
-   timed on the device (CUPTI records through torch.profiler) and per
-   call (CUDA events), medians over 25 runs after a warm-up;
+   timed on the device (CUPTI records through torch.profiler; the mean
+   over 25 calls) and per call (CUDA events; the median of 25), after a
+   warm-up, back to back on one input (so the tables and the stream sit
+   in L2); each time is printed beside its bound, its share of the
+   bound, and for the tile-loop kernels their issue floor (the SASS
+   instructions of a row from `cuobjdump -sass`, issued at one warp
+   instruction a cycle, two for FP64 arithmetic, on each of the SMs' 4
+   schedulers at the card's maximum SM clock);
 4. small f64 adaptations on the card against the same runs on the CPU,
    centralized and distributed: the per-sweep histories must be equal;
 5. a `{"kernels": [...]}` line, the card line, and as the last line
@@ -51,6 +61,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -123,13 +135,15 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, reps: int = 25, warm: int = 3):
-    """(device ms, call ms) of one call of `fn`, medians over `reps`.
+    """(device ms, call ms) of one call of `fn` over `reps` calls.
 
-    Device ms: the GPU time of the kernels the call launched, read from
-    `torch.profiler` (CUPTI) records — the per-call CUDA-event time is
-    dominated by the host's launch overhead at these sizes. Call ms:
-    CUDA-event time around each call. Where the profiler records no
-    device activity, device ms is None."""
+    Device ms: the GPU time of the kernels the calls launched, read from
+    `torch.profiler` (CUPTI) records, over `reps` (a mean) — the per-call
+    CUDA-event time is dominated by the host's launch overhead at these
+    sizes. Call ms: the median CUDA-event time around each call. A
+    capture can come back without device records after many in one
+    process (phase 3 makes about 60), so a capture that has none is
+    made again, up to 3 in all; where none has any, device ms is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -146,14 +160,16 @@ def time_ms(fn, reps: int = 25, warm: int = 3):
         b.record()
         b.synchronize()
         calls.append(a.elapsed_time(b))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    dev_ms = dev_us / reps / 1e3 if dev_us > 0 else None
-    return dev_ms, statistics.median(calls)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        if dev_us > 0:
+            return dev_us / reps / 1e3, statistics.median(calls)
+    return None, statistics.median(calls)
 
 
 def row_scales(vert, met, tet):
@@ -285,17 +301,157 @@ def phase_times(text: str) -> dict:
     return out
 
 
+def ptxas_functions(log: str) -> dict:
+    """Entry function -> {registers, stack, spill_stores, spill_loads,
+    smem} (bytes) from an `nvcc -Xptxas -v` log."""
+    out, fn, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict(registers=0, stack=0, spill_stores=0,
+                           spill_loads=0, smem=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            # an entry function's, or a subroutine's (not reported)
+            props = m.group(1) if m.group(1) in out else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and props:
+            out[props].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[fn]["smem"] = int(m[1]) if m else 0
+    return out
+
+
 def build_kernels() -> None:
     """Phase 1: one nvcc per kernel source, all started together, then
-    one link into the kernel library."""
+    one link into the kernel library. The tile-loop kernels must be free
+    of spills at both dtypes and C, and their loop free of local-memory
+    accesses (a per-thread array that the compiler cannot keep in
+    registers, such as corners indexed through a table in constant
+    memory)."""
     from parmmg_tpu_torch import kernels
 
     build_s = kernels.build_all()
     print(f"## build: {len(kernels.NAMES)} CUDA kernels in {build_s:.2f} s")
-    for name, log in kernels.build.BUILD_LOGS.items():
-        for ln in log.splitlines():
-            if "registers" in ln:
-                print(f"   {name}: {ln.strip()}")
+    logs = kernels.build.BUILD_LOGS
+    for name in kernels.NAMES:
+        require(name in logs, f"no compiler log for {name}")
+        for fn, f in ptxas_functions(logs[name]).items():
+            print(f"   {name}: {f['registers']} registers, {f['smem']} B "
+                  f"static + 0 B dynamic smem, {f['stack']} B stack, spills "
+                  f"{f['spill_stores']}/{f['spill_loads']} B  {fn[:72]}")
+            if name in kernels.build.TILE_LOOP:
+                require(f["spill_stores"] == f["spill_loads"] == 0,
+                        f"{name}: {fn} spills: {f}")
+    for name in kernels.build.TILE_LOOP:
+        for dtn in ("float32", "float64"):
+            for C in (1, 6):
+                body = tile_loop_sass(name, dtn, C)
+                require(body is not None,
+                        f"{name} {dtn} C={C}: tile loop not found in SASS")
+                local = [t for t in body if re.search(r"\b(LDL|STL)\b", t)]
+                require(not local, f"{name} {dtn} C={C}: the tile loop "
+                        f"reads or writes local memory: {local[:4]}")
+
+
+# the epilogue of each tile-loop kernel (csrc/<name>.cu), which its
+# instantiations' names carry
+EPILOGUE = {"quality_vol": "QualityVolOut", "collapse_cavity": "GatedOut"}
+_SASS: dict = {}
+
+
+def sass_functions() -> dict:
+    """Function name -> [(address, instruction)] of the kernel library's
+    SASS (`cuobjdump -sass`), read once."""
+    from parmmg_tpu_torch.kernels import build
+
+    if not _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        text = subprocess.run([tool, "-sass", build.library_path()],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for part in re.split(r"\n\s*Function : ", text)[1:]:
+            _SASS[part.split("\n", 1)[0].strip()] = [
+                (int(a, 16), t.strip()) for a, t in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+    return _SASS
+
+
+_BRA = re.compile(r"\bBRA(?:\.[A-Z.]+)?\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)")
+
+
+def tile_loop_sass(name: str, dtype_name: str, C: int):
+    """The SASS instructions a row of the tile loop of kernel `name` runs
+    at (dtype, C): the loop body from where its two index-read paths join
+    to its back edge (the gathers, the arithmetic with the stubs of the
+    division's out-of-line slow path, the epilogue, the loop control),
+    and each subroutine the body calls where no branch jumps over the
+    call (the f64 `pow`; the slow paths of division and square root run
+    only for operands outside their fast range). None if the loop is not
+    found."""
+    key = f"tile_kernelI{dict(float32='f', float64='d')[dtype_name]}Li{C}E"
+    fns = [v for k, v in sass_functions().items()
+           if key in k and EPILOGUE[name] in k]
+    if len(fns) != 1:
+        return None
+    ins = fns[0]
+    jumps = [(a, int(m[1], 16), t.startswith("@")) for a, t in ins
+             if (m := _BRA.search(t))]
+    # the tile loop's back edge: the backward branch of the longest span
+    back, head = max(((a, b) for a, b, _ in jumps if b < a),
+                     key=lambda ab: ab[0] - ab[1], default=(0, 0))
+    join = next((b for a, b, pred in jumps
+                 if head < a < back and not pred and a < b < back), None)
+    if join is None:
+        return None
+    body = [t for a, t in ins if join <= a <= back]
+    for a, t in ins:
+        m = re.search(r"\bCALL\S*\s+0x([0-9a-f]+)", t)
+        if m and join <= a <= back and not any(
+                src < a < dst for src, dst, _ in jumps if join <= src):
+            target = int(m[1], 16)
+            ret = next((b for b, u in ins if b >= target and "RET" in u),
+                       target)
+            body += [u for b, u in ins if target <= b <= ret]
+    return body
+
+
+def max_sm_hz() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return float(r.stdout.split()[0]) * 1e6
+
+
+# FP64 arithmetic, which an H100 issues at half the FP32 rate (16 lanes a
+# scheduler): two cycles a warp instruction
+_FP64 = re.compile(r"^(?:@!?U?P\w+\s+)?D(?:ADD|MUL|FMA|SETP|MNMX)\b")
+
+
+def issue_floor(name: str, dtype_name: str, C: int, N: int):
+    """(SASS instructions a row, issue cycles a row, ms) of the tile-loop
+    kernel `name` over N rows, one row a thread: the time the card's
+    schedulers (4 an SM, at the maximum SM clock) take to issue them,
+    one warp instruction a cycle and two for FP64 arithmetic. Other
+    pipes slower than one a cycle (MUFU, conversions) are counted at one,
+    so this is a lower bound."""
+    import torch
+
+    body = tile_loop_sass(name, dtype_name, C)
+    if body is None:
+        return None, None, None
+    cycles = sum(2 if _FP64.match(t) else 1 for t in body)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return len(body), cycles, (cycles * N / 32 / (sms * 4 * max_sm_hz())
+                               * 1e3)
 
 
 def main_path(n: int, hsiz: float, ne_range):
@@ -677,7 +833,14 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str) -> dict:
               f"{r['ms']:.4f} ms (per call {r['call_ms']:.4f} ms), plain "
               f"device {r['plain_ms']:.4f} ms (per call "
               f"{r['plain_call_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), max|err| {r['err']:.3e}")
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of "
+              f"it), max|err| {r['err']:.3e}")
+        if name in kernels.build.TILE_LOOP:
+            n_ins, cycles, floor_ms = issue_floor(name, dtn, C, N)
+            print("   issue floor not measured (loop not found in the SASS)"
+                  if n_ins is None else
+                  f"   issue floor {floor_ms:.4f} ms ({n_ins} SASS "
+                  f"instructions, {cycles} issue cycles a row)")
     return results
 
 

@@ -8,43 +8,35 @@
 // out[r] = q(new_tet[r]) where vol(new_tet[r]) > vol_floor[r], else -inf
 // — the operand of collapse's ball-min scatter.
 //
-// Bound on an H100: bytes — per row 16 B of indices, one floor value in
-// and one value out (8 B at f32), plus the vertex/metric tables, which
-// fit in L2 at the main path's size. Design: one thread per row, corner
-// gathers through L1/L2, the volume gate evaluated in registers in the
-// plain version's rounding order (-fmad=false), one write per row.
-#include "tet_math.cuh"
+// What bounds it on an H100: as quality_vol.cu — bytes (16 B of indices
+// and one floor value in, one value out per row, the tables L2-resident)
+// and, tighter, the issue of the ~370 exact SASS instructions a row
+// (f32 C=1); the dependent chain of each row sets the pace.
+// Design: the persistent tile loop of tile_loop.cuh, with vol_floor as
+// its side stream (staged in shared memory beside the index rows). This
+// file holds only the epilogue: the volume gate, evaluated in the plain
+// version's rounding order (-fmad=false), and one write per row.
+#include "tile_loop.cuh"
 
 template <typename T>
-__global__ void collapse_cavity_kernel(const T* __restrict__ vert,
-                                       const T* __restrict__ met, int C,
-                                       int P, const int* __restrict__ tet,
-                                       const T* __restrict__ vol_floor,
-                                       long long n, T alpha,
-                                       T* __restrict__ out) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  int id[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) id[k] = pmt::fix_idx(tet[4 * r + k], P);
-  T c[4][3];
-  pmt::load_corners(vert, id, c);
-  T v = pmt::tet_vol(c);
-  T q = pmt::tet_quality(c, v, met, C, id, alpha);
-  out[r] = (v > vol_floor[r]) ? q : -INFINITY;
-}
+struct GatedOut {
+  static constexpr bool kSide = true;
+  const T* vol_floor;
+  T* out;
+  __host__ __device__ const T* side() const { return vol_floor; }
+  __device__ void operator()(long long r, T q, T v, T floor) const {
+    out[r] = (v > floor) ? q : -INFINITY;
+  }
+};
 
 template <typename T>
 static int launch(const void* vert, const void* met, int C, int P,
                   const void* tet, const void* vol_floor, long long n,
                   double alpha, void* out, void* stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  collapse_cavity_kernel<T><<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      (const T*)vert, (const T*)met, C, P, (const int*)tet,
-      (const T*)vol_floor, n, (T)alpha, (T*)out);
-  return (int)cudaGetLastError();
+  const pmt::Stream<T> a{(const T*)vert, (const T*)met, P, (const int*)tet,
+                         n, (T)alpha};
+  return pmt::launch_tiles<T>(C, a, GatedOut<T>{(const T*)vol_floor, (T*)out},
+                              stream);
 }
 
 extern "C" int collapse_cavity_f32(const void* vert, const void* met, int C,
@@ -62,3 +54,4 @@ extern "C" int collapse_cavity_f64(const void* vert, const void* met, int C,
   return launch<double>(vert, met, C, P, tet, vol_floor, n, alpha, out,
                         stream);
 }
+

@@ -58,23 +58,32 @@ __device__ __forceinline__ T tet_vol(const T c[4][3]) {
   return vol6(c[0], c[1], c[2], c[3]) / T(6);
 }
 
-__constant__ int EV[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};
+// The six edges (ea(k), eb(k)) of a tet: (0,1) (0,2) (0,3) (1,2) (1,3)
+// (2,3). Compile-time functions, not a table in constant memory: in
+// unrolled loops they fold to constants, so corners indexed by them stay
+// in registers instead of a local-memory array.
+__host__ __device__ constexpr int ea(int k) {
+  return k < 3 ? 0 : k < 5 ? 1 : 2;
+}
+__host__ __device__ constexpr int eb(int k) {
+  return k < 3 ? k + 1 : k < 5 ? k - 1 : 3;
+}
 
-// Quality of one tet from its corners and corner metrics (C = 1 or 6):
+// Quality of one tet from its corners and the metrics at its corners
+// (m4[k] of corner k, C = 1 or 6):
 // ALPHA * volm / max(sum l^2, 1e-30)^1.5, non-finite -> 0.
-template <typename T>
+template <typename T, int C>
 __device__ __forceinline__ T tet_quality(const T c[4][3], T vol,
-                                         const T* __restrict__ met, int C,
-                                         const int* id, T alpha) {
+                                         const T m4[4][C], T alpha) {
   T rap = T(0), volm;
-  if (C == 1) {
-    T h = (((met[id[0]] + met[id[1]]) + met[id[2]]) + met[id[3]]) / T(4);
+  if constexpr (C == 1) {
+    T h = (((m4[0][0] + m4[1][0]) + m4[2][0]) + m4[3][0]) / T(4);
     T h2 = maxp(h * h, T(1e-30));
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
-      T ex = c[EV[k][1]][0] - c[EV[k][0]][0];
-      T ey = c[EV[k][1]][1] - c[EV[k][0]][1];
-      T ez = c[EV[k][1]][2] - c[EV[k][0]][2];
+      T ex = c[eb(k)][0] - c[ea(k)][0];
+      T ey = c[eb(k)][1] - c[ea(k)][1];
+      T ez = c[eb(k)][2] - c[ea(k)][2];
       T l2 = ((ex * ex + ey * ey) + ez * ez) / h2;
       rap = (k == 0) ? l2 : rap + l2;
     }
@@ -83,9 +92,7 @@ __device__ __forceinline__ T tet_quality(const T c[4][3], T vol,
     T m[6];
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      m[j] = (((met[6 * (long long)id[0] + j] + met[6 * (long long)id[1] + j])
-               + met[6 * (long long)id[2] + j])
-              + met[6 * (long long)id[3] + j]) / T(4);
+      m[j] = (((m4[0][j] + m4[1][j]) + m4[2][j]) + m4[3][j]) / T(4);
     }
     // rows of the symmetric tensor (m11 m12 m13 m22 m23 m33)
     const T M[3][3] = {{m[0], m[1], m[2]}, {m[1], m[3], m[4]},
@@ -94,7 +101,7 @@ __device__ __forceinline__ T tet_quality(const T c[4][3], T vol,
     for (int k = 0; k < 6; ++k) {
       T e[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) e[j] = c[EV[k][1]][j] - c[EV[k][0]][j];
+      for (int j = 0; j < 3; ++j) e[j] = c[eb(k)][j] - c[ea(k)][j];
       T w[3];
 #pragma unroll
       for (int j = 0; j < 3; ++j)

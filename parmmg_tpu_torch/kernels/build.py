@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -42,7 +43,9 @@ NVCC_FLAGS = [
 
 LAUNCHES = {name: 0 for name in SOURCES}
 SHAPES: dict = {}
-# compiler log of each source (register and spill counts, `-Xptxas -v`)
+# compiler log of each source (register and spill counts, `-Xptxas -v`),
+# kept beside the library so that a process loading a library built
+# earlier reads them too
 BUILD_LOGS: dict = {}
 _LIB = None
 
@@ -78,7 +81,8 @@ def nvcc_path() -> str:
     return p
 
 
-def _lib_path() -> str:
+def library_path() -> str:
+    """Where the kernel library of these sources and flags is built."""
     h = hashlib.sha256()
     for f in sorted(os.listdir(SRC_DIR)):
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
@@ -104,7 +108,7 @@ def build_all() -> float:
     global _LIB
     t0 = time.perf_counter()
     if _LIB is None:
-        out = _lib_path()
+        out = library_path()
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = nvcc_path()
@@ -117,6 +121,11 @@ def build_all() -> float:
             _run({"link": subprocess.Popen(
                 [nvcc, *ARCH, "-shared", "-o", out, *objs.values()],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)})
+            with open(f"{out[:-3]}.log.json", "w") as f:
+                json.dump(BUILD_LOGS, f)
+        elif os.path.exists(f"{out[:-3]}.log.json"):
+            with open(f"{out[:-3]}.log.json") as f:
+                BUILD_LOGS.update(json.load(f))
         _LIB = ctypes.CDLL(out)
     return time.perf_counter() - t0
 
@@ -134,6 +143,16 @@ SIGNATURES = {
     # vert, met, P, vids, pts, D, Q, bary, met_q, stream
     "interp_bary": (_P, _P, _I, _P, _P, _L, _L, _P, _P, _P),
 }
+
+
+# the kernels that share the tile loop of csrc/tile_loop.cuh
+TILE_LOOP = ("quality_vol", "collapse_cavity")
+
+
+def tile_rows() -> int:
+    """Rows a tile of the tile loop (csrc/tile_loop.cuh TILE)."""
+    build_all()
+    return ctypes.c_int.in_dll(_LIB, "tile_loop_rows").value
 
 
 def function(name: str, dtype):

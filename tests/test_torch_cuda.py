@@ -9,9 +9,12 @@ are compiled with -fmad=false and follow the plain versions' expression
 order), so volumes, the collapse gate's -inf positions and the split
 booleans must be equal; qualities differ only through the library `pow`,
 within `_rtol` of tests/test_m18_kernels.py (5e-6 at f32, 5e-11 at f64).
-The fixture is test_m18's (P=1500, N=4000, seed 7); interp_bary's is its
-interp case (the unit cube n=4's tets, 1024 seeded points), also stacked
-over three shards.
+The fixture is test_m18's (P=1500, N=4000, seed 7), and for the tile loop
+of quality_vol and collapse_cavity also streams at its edges (empty, one
+row, a tile and one row either side, several tiles a CTA with a ragged
+end, views off 16-byte alignment); interp_bary's is its interp case (the
+unit cube n=4's tets, 1024 seeded points), also stacked over three
+shards.
 """
 
 import numpy as np
@@ -87,7 +90,60 @@ def test_kernels_on_the_card():
         kernels.quality_vol(vert, met[:, :1].expand(-1, 2), tet)
     with pytest.raises(ValueError):
         kernels.quality_vol(vert, met, tet.t().contiguous().t())
+    _check_tile_edges(dev)
     _check_interp_bary(dev)
+
+
+def _offset_view(t):
+    """`t` copied into a larger buffer at an offset of one element, so
+    that the view's base is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and (v.numel() == 0 or v.data_ptr() % 16 != 0)
+    return v
+
+
+def _check_tile_edges(dev):
+    """quality_vol and collapse_cavity at the edges of their tile loop
+    (csrc/tile_loop.cuh), f32 and f64, C = 1 and 6: no rows, one row, one
+    tile and one row either side of it, and a stream that gives every CTA
+    several tiles and ends in a ragged one; each with index rows and
+    floors read through the shared-memory ring where the loop takes it
+    and, from views whose base is off 16-byte alignment, with ordinary
+    loads. One launch per call with rows, none without."""
+    rng = np.random.default_rng(17)
+    tile = kernels.build.tile_rows()
+    # an SM of Hopper holds at most 32 CTAs, so every CTA of the grid
+    # walks at least three tiles, the last one ragged
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    many = 3 * sms * 32 * tile + 7
+    for dt in (torch.float32, torch.float64):
+        vert, met, met6, *_ = _fixture(dev, dt)
+        P = vert.shape[0]
+        for m in (met, met6):
+            for n in (0, 1, tile - 1, tile, tile + 1, many):
+                tet = torch.tensor(rng.integers(0, P, size=(n, 4)),
+                                   dtype=torch.int32, device=dev)
+                _, vol0 = kernels.quality_vol_plain(vert, m, tet)
+                floor = POS_VOL_FRAC * vol0.abs().roll(1)
+                for t, f in ((tet, floor), (_offset_view(tet),
+                                            _offset_view(floor))):
+                    before = dict(kernels.LAUNCHES)
+                    q, vol = kernels.quality_vol(vert, m, t)
+                    g = kernels.collapse_cavity(vert, m, t, f)
+                    q0, vol0 = kernels.quality_vol_plain(vert, m, t)
+                    g0 = kernels.collapse_cavity_plain(vert, m, t, f)
+                    torch.cuda.synchronize()
+                    for k in ("quality_vol", "collapse_cavity"):
+                        assert kernels.LAUNCHES[k] == before[k] + (n > 0)
+                    assert q.shape == vol.shape == g.shape == (n,)
+                    assert torch.equal(vol, vol0)
+                    torch.testing.assert_close(q, q0, rtol=RTOL[dt], atol=0)
+                    assert torch.equal(torch.isinf(g), torch.isinf(g0))
+                    fin = torch.isfinite(g0)
+                    torch.testing.assert_close(g[fin], g0[fin],
+                                               rtol=RTOL[dt], atol=0)
 
 
 def _check_interp_bary(dev):
