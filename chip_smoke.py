@@ -8,9 +8,10 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
 
 1. print the card (`nvidia-smi` name and power limit) and build the CUDA
    kernels of `parmmg_tpu_torch/csrc/` (one `nvcc` per source, all
-   started together, linked into one library); the compiler's
-   `-Xptxas -v` log must show no spills for the tile-loop kernels
-   (quality_vol, collapse_cavity), and their loop in the SASS no
+   started together, linked into one library, with the launch-floor
+   probe); the compiler's `-Xptxas -v` log must show no spills for any
+   kernel, and the SASS a row runs (the tile loop of quality_vol and
+   collapse_cavity, the body of split_midpoint and interp_bary) no
    local-memory access; registers and static shared memory are printed
    (no launch takes dynamic shared memory);
 2. centralized path: write the structured unit cube 12^3 with the port's
@@ -37,15 +38,20 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    shapes on the output of 2, and at the per-shard shapes of 2c on a
    shard of the merged output of 2c; interp_bary over D shards of that
    output) in f32 and f64, with iso (C=1)
-   and seeded SPD tensor (C=6) metrics where the kernel takes them;
+   and seeded SPD tensor (C=6) metrics where the kernel takes them
+   (split_midpoint's booleans and interp_bary's outputs bit for bit,
+   the qualities within RTOL);
    timed on the device (CUPTI records through torch.profiler; the mean
    over 25 calls) and per call (CUDA events; the median of 25), after a
    warm-up, back to back on one input (so the tables and the stream sit
    in L2); each time is printed beside its bound, its share of the
-   bound, and for the tile-loop kernels their issue floor (the SASS
-   instructions of a row from `cuobjdump -sass`, issued at one warp
-   instruction a cycle, two for FP64 arithmetic, on each of the SMs' 4
-   schedulers at the card's maximum SM clock);
+   bound, its issue floor (the SASS instructions of a row from
+   `cuobjdump -sass`, issued at one warp instruction a cycle, two for
+   FP64 arithmetic, on each of the SMs' 4 schedulers at the card's
+   maximum SM clock) and, for the one-row-a-thread kernels
+   (split_midpoint, interp_bary), the launch floor: the device time of
+   an empty kernel on the same grid (`csrc/launch_floor.cu`), by the
+   same estimator;
 4. small f64 adaptations on the card against the same runs on the CPU,
    centralized and distributed: the per-sweep histories must be equal;
 5. a `{"kernels": [...]}` line, the card line, and as the last line
@@ -288,6 +294,37 @@ def timed(fn, fn0, err, bound_ms, bound_by) -> dict:
                 err=err, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def launch_floor(rows: int, shards: int):
+    """Device ms of an empty kernel on the grid of the one-row-a-thread
+    kernels over `rows` rows in each of `shards` shards
+    (`csrc/launch_floor.cu`), by `time_ms`'s estimator; None where the
+    profiler recorded no device activity."""
+    import torch
+
+    from parmmg_tpu_torch.kernels import build
+
+    fn = build.function("launch_floor")
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_ms(lambda: build.check(fn(rows, shards, stream),
+                                       "launch_floor"))[0]
+
+
+def floors(name: str, dtn: str, C: int, N: int, r: dict) -> str:
+    """The issue floor of kernel `name` over N rows, and the launch floor
+    in `r` where it was measured, as printed beside the bound."""
+    n_ins, cycles, floor_ms = issue_floor(name, dtn, C, N)
+    out = ("   issue floor not measured (row body not found in the SASS)"
+           if n_ins is None else
+           f"   issue floor {floor_ms:.4f} ms ({n_ins} SASS instructions, "
+           f"{cycles} issue cycles a row)")
+    if "launch_floor_ms" in r:
+        lf = r["launch_floor_ms"]
+        out += (", launch_floor_ms not measured" if lf is None else
+                f", launch_floor_ms {lf:.4f} (an empty kernel on the same "
+                "grid)")
+    return out
+
+
 def phase_times(text: str) -> dict:
     """Phase -> seconds from the CLI's `-- PHASE TIMES (s)` table."""
     out, on = {}, False
@@ -330,13 +367,18 @@ def ptxas_functions(log: str) -> dict:
     return out
 
 
+# the metric widths C each kernel's instantiations take (0: none)
+WIDTHS = {"quality_vol": (1, 6), "collapse_cavity": (1, 6),
+          "split_midpoint": (0,), "interp_bary": (1,)}
+
+
 def build_kernels() -> None:
     """Phase 1: one nvcc per kernel source, all started together, then
-    one link into the kernel library. The tile-loop kernels must be free
-    of spills at both dtypes and C, and their loop free of local-memory
-    accesses (a per-thread array that the compiler cannot keep in
-    registers, such as corners indexed through a table in constant
-    memory)."""
+    one link into the kernel library. Every kernel must be free of
+    spills, and the SASS a row runs free of local-memory accesses (a
+    per-thread array that the compiler cannot keep in registers, such as
+    corners indexed through a table in constant memory), at both dtypes
+    and each C."""
     from parmmg_tpu_torch import kernels
 
     build_s = kernels.build_all()
@@ -348,17 +390,16 @@ def build_kernels() -> None:
             print(f"   {name}: {f['registers']} registers, {f['smem']} B "
                   f"static + 0 B dynamic smem, {f['stack']} B stack, spills "
                   f"{f['spill_stores']}/{f['spill_loads']} B  {fn[:72]}")
-            if name in kernels.build.TILE_LOOP:
-                require(f["spill_stores"] == f["spill_loads"] == 0,
-                        f"{name}: {fn} spills: {f}")
-    for name in kernels.build.TILE_LOOP:
+            require(f["spill_stores"] == f["spill_loads"] == 0,
+                    f"{name}: {fn} spills: {f}")
+    for name in kernels.NAMES:
         for dtn in ("float32", "float64"):
-            for C in (1, 6):
-                body = tile_loop_sass(name, dtn, C)
+            for C in WIDTHS[name]:
+                body = row_sass(name, dtn, C)
                 require(body is not None,
-                        f"{name} {dtn} C={C}: tile loop not found in SASS")
+                        f"{name} {dtn} C={C}: row body not found in SASS")
                 local = [t for t in body if re.search(r"\b(LDL|STL)\b", t)]
-                require(not local, f"{name} {dtn} C={C}: the tile loop "
+                require(not local, f"{name} {dtn} C={C}: the row body "
                         f"reads or writes local memory: {local[:4]}")
 
 
@@ -388,35 +429,49 @@ def sass_functions() -> dict:
 _BRA = re.compile(r"\bBRA(?:\.[A-Z.]+)?\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)")
 
 
-def tile_loop_sass(name: str, dtype_name: str, C: int):
-    """The SASS instructions a row of the tile loop of kernel `name` runs
-    at (dtype, C): the loop body from where its two index-read paths join
-    to its back edge (the gathers, the arithmetic with the stubs of the
-    division's out-of-line slow path, the epilogue, the loop control),
-    and each subroutine the body calls where no branch jumps over the
-    call (the f64 `pow`; the slow paths of division and square root run
-    only for operands outside their fast range). None if the loop is not
+def row_sass(name: str, dtype_name: str, C: int):
+    """The SASS instructions a row of kernel `name` runs at (dtype, C).
+    For the tile-loop kernels: the loop body from where its two
+    index-read paths join to its back edge (the gathers, the arithmetic
+    with the stubs of the division's out-of-line slow path, the
+    epilogue, the loop control). For the one-row-a-thread kernels: the
+    body from the entry to the first unconditional EXIT. Both with each
+    subroutine the body calls where no branch jumps over the call (the
+    f64 `pow`; the slow paths of division and square root run only for
+    operands outside their fast range). None if the body is not
     found."""
-    key = f"tile_kernelI{dict(float32='f', float64='d')[dtype_name]}Li{C}E"
-    fns = [v for k, v in sass_functions().items()
-           if key in k and EPILOGUE[name] in k]
+    from parmmg_tpu_torch.kernels.build import TILE_LOOP
+
+    ty = dict(float32="f", float64="d")[dtype_name]
+    if name in TILE_LOOP:
+        key, tag = f"tile_kernelI{ty}Li{C}E", EPILOGUE[name]
+    else:
+        key, tag = f"{name}_kernelI{ty}E", ""
+    fns = [v for k, v in sass_functions().items() if key in k and tag in k]
     if len(fns) != 1:
         return None
     ins = fns[0]
     jumps = [(a, int(m[1], 16), t.startswith("@")) for a, t in ins
              if (m := _BRA.search(t))]
-    # the tile loop's back edge: the backward branch of the longest span
-    back, head = max(((a, b) for a, b, _ in jumps if b < a),
-                     key=lambda ab: ab[0] - ab[1], default=(0, 0))
-    join = next((b for a, b, pred in jumps
-                 if head < a < back and not pred and a < b < back), None)
-    if join is None:
-        return None
-    body = [t for a, t in ins if join <= a <= back]
+    if name in TILE_LOOP:
+        # the tile loop's back edge: the backward branch of the longest
+        # span
+        hi, head = max(((a, b) for a, b, _ in jumps if b < a),
+                       key=lambda ab: ab[0] - ab[1], default=(0, 0))
+        lo = next((b for a, b, pred in jumps
+                   if head < a < hi and not pred and a < b < hi), None)
+        if lo is None:
+            return None
+    else:
+        lo = ins[0][0]
+        hi = next((a for a, t in ins if re.match(r"EXIT\b", t)), None)
+        if hi is None:
+            return None
+    body = [t for a, t in ins if lo <= a <= hi]
     for a, t in ins:
         m = re.search(r"\bCALL\S*\s+0x([0-9a-f]+)", t)
-        if m and join <= a <= back and not any(
-                src < a < dst for src, dst, _ in jumps if join <= src):
+        if m and lo <= a <= hi and not any(
+                src < a < dst for src, dst, _ in jumps if lo <= src):
             target = int(m[1], 16)
             ret = next((b for b, u in ins if b >= target and "RET" in u),
                        target)
@@ -437,15 +492,15 @@ _FP64 = re.compile(r"^(?:@!?U?P\w+\s+)?D(?:ADD|MUL|FMA|SETP|MNMX)\b")
 
 
 def issue_floor(name: str, dtype_name: str, C: int, N: int):
-    """(SASS instructions a row, issue cycles a row, ms) of the tile-loop
-    kernel `name` over N rows, one row a thread: the time the card's
+    """(SASS instructions a row, issue cycles a row, ms) of kernel `name`
+    over N rows, one row a thread: the time the card's
     schedulers (4 an SM, at the maximum SM clock) take to issue them,
     one warp instruction a cycle and two for FP64 arithmetic. Other
     pipes slower than one a cycle (MUFU, conversions) are counted at one,
     so this is a lower bound."""
     import torch
 
-    body = tile_loop_sass(name, dtype_name, C)
+    body = row_sass(name, dtype_name, C)
     if body is None:
         return None, None, None
     cycles = sum(2 if _FP64.match(t) else 1 for t in body)
@@ -827,6 +882,8 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str) -> dict:
             lambda: kernels.split_midpoint(vert, tet, newp, li, lj),
             lambda: kernels.split_midpoint_plain(vert, tet, newp, li, lj),
             0.0, *bound("split_midpoint", 0, P, N, isz, dtn))
+        results[("split_midpoint", dtn, 0)]["launch_floor_ms"] = \
+            launch_floor(N, 1)
     for (name, dtn, C), r in results.items():
         N, P = shapes[name]
         print(f"## kernel {name} {dtn} C={C} P={P} N={N} ({path}): device "
@@ -835,12 +892,7 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str) -> dict:
               f"{r['plain_call_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of "
               f"it), max|err| {r['err']:.3e}")
-        if name in kernels.build.TILE_LOOP:
-            n_ins, cycles, floor_ms = issue_floor(name, dtn, C, N)
-            print("   issue floor not measured (loop not found in the SASS)"
-                  if n_ins is None else
-                  f"   issue floor {floor_ms:.4f} ms ({n_ins} SASS "
-                  f"instructions, {cycles} issue cycles a row)")
+        print(floors(name, dtn, C, N, r))
     return results
 
 
@@ -912,13 +964,18 @@ def check_interp(m, shapes) -> dict:
             lambda: kernels.interp_bary_plain(vert, met, vids, pts),
             err, *bound("interp_bary", 1, D * P, D * Q, isz, dtn))
         r = results[("interp_bary", dtn, 1)]
+        r["launch_floor_ms"] = launch_floor(Q, D)
         same = bool(torch.equal(b, b0) and torch.equal(mq, mq0))
         print(f"## kernel interp_bary {dtn} C=1 D={D} P={P} Q={Q}: device "
               f"{r['ms']:.4f} ms (per call {r['call_ms']:.4f} ms), plain "
               f"device {r['plain_ms']:.4f} ms (per call "
               f"{r['plain_call_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), max|err| {r['err']:.3e}, "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of "
+              f"it), max|err| {r['err']:.3e}, "
               f"bit for bit: {same}, {clamped} of {D * Q} rows clamped")
+        print(floors("interp_bary", dtn, 1, D * Q, r))
+        require(same, f"interp_bary {dtn}: the kernel's bary or met_q "
+                "differ from the plain version's in bits")
     return results
 
 

@@ -11,38 +11,52 @@
 //
 // Bound on an H100: bytes — per row 16 B of indices, 3 midpoint values,
 // two slot ids and one byte out (about 37 B at f32), plus the vertex
-// table (L2-resident at the main path's size). Design: one thread per
-// row; the three volumes share one corner gather and are evaluated in
-// the plain version's rounding order (-fmad=false), so the boolean
-// matches it exactly.
+// table (L2-resident at the main path's size). At the per-shard shapes
+// (about 60k rows) that is under a microsecond, the order of an empty
+// launch, so the kernel is one wave and one dependent chain: index row,
+// corner gathers, arithmetic, store. Design: shorten the chain. One
+// thread a row (row_grid.cuh); the row's index, midpoint and slot loads
+// are issued together before the corner gathers; corners come through
+// the read-only path into registers, and so do the two children, each
+// the parent with the midpoint selected into one slot (a pointer to the
+// midpoint in that slot instead puts the f64 corners in local memory);
+// child B's volume is skipped where child A fails (computing both
+// measured slower on an H100, PERF.md). The volumes keep the plain
+// version's rounding order (-fmad=false) and its IEEE division by 6, so
+// the boolean matches it exactly.
+#include "row_grid.cuh"
 #include "tet_math.cuh"
 
 template <typename T>
-__global__ void split_midpoint_kernel(const T* __restrict__ vert, int P,
-                                      const int* __restrict__ tet,
-                                      const T* __restrict__ newp,
-                                      const int* __restrict__ li,
-                                      const int* __restrict__ lj,
-                                      long long n, T frac,
-                                      unsigned char* __restrict__ ok) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(pmt::kRowThreads)
+    split_midpoint_kernel(const T* __restrict__ vert, int P,
+                          const int* __restrict__ tet,
+                          const T* __restrict__ newp,
+                          const int* __restrict__ li,
+                          const int* __restrict__ lj, long long n, T frac,
+                          unsigned char* __restrict__ ok) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  int id[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) id[k] = pmt::fix_idx(tet[4 * r + k], P);
-  T c[4][3], a[4][3], b[4][3];
-  pmt::load_corners(vert, id, c);
-  const int sa = lj[r], sb = li[r];
+  // every load of the row before the gathers that depend on it
+  const int4 id = pmt::index_row(tet, r);
+  const T p[3] = {__ldg(&newp[3 * r]), __ldg(&newp[3 * r + 1]),
+                  __ldg(&newp[3 * r + 2])};
+  const int sa = __ldg(&lj[r]), sb = __ldg(&li[r]);
+  int v[4];
+  T c[4][3];
+  pmt::load_corners(vert, P, id, v, c);
+  // the children: the parent with slot sa (A) or sb (B) at the midpoint
+  T a[4][3], b[4][3];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      T p = newp[3 * r + j];
-      a[k][j] = (k == sa) ? p : c[k][j];
-      b[k][j] = (k == sb) ? p : c[k][j];
+      a[k][j] = (k == sa) ? p[j] : c[k][j];
+      b[k][j] = (k == sb) ? p[j] : c[k][j];
     }
   }
-  T floor = frac * fabs(pmt::tet_vol(c));
+  // child B's volume only where child A clears the floor
+  const T floor = frac * fabs(pmt::tet_vol(c));
   ok[r] = (pmt::tet_vol(a) > floor) && (pmt::tet_vol(b) > floor);
 }
 
@@ -50,9 +64,7 @@ template <typename T>
 static int launch(const void* vert, int P, const void* tet, const void* newp,
                   const void* li, const void* lj, long long n, double frac,
                   void* ok, void* stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  split_midpoint_kernel<T><<<(unsigned)blocks, threads, 0,
+  split_midpoint_kernel<T><<<pmt::row_grid(n, 1), pmt::kRowThreads, 0,
                              (cudaStream_t)stream>>>(
       (const T*)vert, P, (const int*)tet, (const T*)newp, (const int*)li,
       (const int*)lj, n, (T)frac, (unsigned char*)ok);
@@ -72,3 +84,7 @@ extern "C" int split_midpoint_f64(const void* vert, int P, const void* tet,
                                   void* ok, void* stream) {
   return launch<double>(vert, P, tet, newp, li, lj, n, frac, ok, stream);
 }
+
+// threads a CTA of the one-row-a-thread kernels' grid, read by the tests
+// that place streams at the edges of a CTA
+extern "C" const int row_threads = pmt::kRowThreads;

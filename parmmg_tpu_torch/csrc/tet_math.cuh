@@ -25,13 +25,29 @@ __device__ __forceinline__ T maxp(T x, T lo) {
   return (x < lo) ? lo : x;
 }
 
+// Index row r of a stream [n,4] int32, four loads through the read-only
+// path.
+__device__ __forceinline__ int4 index_row(const int* __restrict__ rows,
+                                          long long r) {
+  return make_int4(__ldg(&rows[4 * r]), __ldg(&rows[4 * r + 1]),
+                   __ldg(&rows[4 * r + 2]), __ldg(&rows[4 * r + 3]));
+}
+
+// The corners of index row `id` under the gather convention (v) and
+// their coordinates through the read-only path (c).
 template <typename T>
 __device__ __forceinline__ void load_corners(const T* __restrict__ vert,
-                                             const int* id, T c[4][3]) {
+                                             int P, int4 id, int v[4],
+                                             T c[4][3]) {
+  v[0] = fix_idx(id.x, P);
+  v[1] = fix_idx(id.y, P);
+  v[2] = fix_idx(id.z, P);
+  v[3] = fix_idx(id.w, P);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) c[k][j] = vert[3 * (long long)id[k] + j];
+    for (int j = 0; j < 3; ++j)
+      c[k][j] = __ldg(&vert[3 * (long long)v[k] + j]);
   }
 }
 

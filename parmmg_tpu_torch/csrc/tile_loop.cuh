@@ -180,21 +180,17 @@ __global__ void __launch_bounds__(TILE)
       if (aligned) {
         id = __ldg(reinterpret_cast<const int4*>(a.tet) + rr);
       } else {
-        id = make_int4(__ldg(&a.tet[4 * rr]), __ldg(&a.tet[4 * rr + 1]),
-                       __ldg(&a.tet[4 * rr + 2]), __ldg(&a.tet[4 * rr + 3]));
+        id = index_row(a.tet, rr);
       }
       if constexpr (SIDE) sv = __ldg(&side[rr]);
     }
 
     // every gather of the row, then the arithmetic
-    const int v4[4] = {fix_idx(id.x, a.P), fix_idx(id.y, a.P),
-                       fix_idx(id.z, a.P), fix_idx(id.w, a.P)};
+    int v4[4];
     T c[4][3], m4[4][C];
+    load_corners(a.vert, a.P, id, v4, c);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        c[j][d] = __ldg(&a.vert[3 * (long long)v4[j] + d]);
 #pragma unroll
       for (int d = 0; d < C; ++d)
         m4[j][d] = __ldg(&a.met[C * (long long)v4[j] + d]);

@@ -30,6 +30,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel sources under csrc/
 SOURCES = ("quality_vol", "collapse_cavity", "split_midpoint", "interp_bary")
+# measurement-only sources under csrc/, built with the kernels and called
+# by nothing on the main path (chip_smoke.py phase 3)
+PROBES = ("launch_floor",)
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
@@ -112,12 +115,12 @@ def build_all() -> float:
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = nvcc_path()
-            objs = {n: f"{out[:-3]}.{n}.o" for n in SOURCES}
+            objs = {n: f"{out[:-3]}.{n}.o" for n in SOURCES + PROBES}
             _run({n: subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", objs[n],
                  os.path.join(SRC_DIR, f"{n}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for n in SOURCES})
+                for n in objs})
             _run({"link": subprocess.Popen(
                 [nvcc, *ARCH, "-shared", "-o", out, *objs.values()],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)})
@@ -142,6 +145,8 @@ SIGNATURES = {
     "split_midpoint": (_P, _I, _P, _P, _P, _P, _L, _D, _P, _P),
     # vert, met, P, vids, pts, D, Q, bary, met_q, stream
     "interp_bary": (_P, _P, _I, _P, _P, _L, _L, _P, _P, _P),
+    # rows, shards, stream (no dtype suffix)
+    "launch_floor": (_L, _L, _P),
 }
 
 
@@ -155,14 +160,25 @@ def tile_rows() -> int:
     return ctypes.c_int.in_dll(_LIB, "tile_loop_rows").value
 
 
-def function(name: str, dtype):
+def row_threads() -> int:
+    """Threads a CTA of the one-row-a-thread kernels
+    (csrc/row_grid.cuh kRowThreads, exported by csrc/split_midpoint.cu)."""
+    build_all()
+    return ctypes.c_int.in_dll(_LIB, "row_threads").value
+
+
+def function(name: str, dtype=None):
     """The ctypes entry point of kernel `name` for a float dtype
-    (float32 or float64), with its argument and return types set."""
+    (float32 or float64; None for a probe), with its argument and return
+    types set."""
     import torch
 
-    sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
     build_all()
-    fn = getattr(_LIB, f"{name}_{sfx}")
+    if dtype is None:
+        fn = getattr(_LIB, name)
+    else:
+        sfx = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+        fn = getattr(_LIB, f"{name}_{sfx}")
     fn.argtypes = SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn

@@ -70,11 +70,13 @@ def _check(vert, met, vids, pts) -> None:
     if vert.shape[-2] == 0 and vids.numel():
         raise ValueError("interp_bary needs a non-empty table")
     _check_tables(vert.reshape(-1, 3), met.reshape(-1, met.shape[-1]))
+    # the rows of all shards (an empty stream too: `reshape(0, -1)` is
+    # ambiguous, so the width is named)
     rows = vids.numel() // max(vids.shape[-1], 1)
-    _check_stream(vids.reshape(rows, -1), 4, torch.int32, rows,
+    _check_stream(vids.reshape(rows, vids.shape[-1]), 4, torch.int32, rows,
                   vert.device, "vids")
-    _check_stream(pts.reshape(rows, -1), 3, vert.dtype, rows, vert.device,
-                  "pts")
+    _check_stream(pts.reshape(rows, pts.shape[-1]), 3, vert.dtype, rows,
+                  vert.device, "pts")
 
 
 def interp_bary(vert, met, vids, pts):

@@ -14,7 +14,11 @@ of quality_vol and collapse_cavity also streams at its edges (empty, one
 row, a tile and one row either side, several tiles a CTA with a ragged
 end, views off 16-byte alignment); interp_bary's is its interp case (the
 unit cube n=4's tets, 1024 seeded points), also stacked over three
-shards.
+shards. split_midpoint and interp_bary, one row a thread, are also run
+at the edges of their grid (no rows, one row, a CTA and one row either
+side of it, shards whose rows do not fill their last CTA, index streams
+off 16-byte alignment), where both must equal their plain versions bit
+for bit.
 """
 
 import numpy as np
@@ -92,6 +96,7 @@ def test_kernels_on_the_card():
         kernels.quality_vol(vert, met, tet.t().contiguous().t())
     _check_tile_edges(dev)
     _check_interp_bary(dev)
+    _check_row_edges(dev)
 
 
 def _offset_view(t):
@@ -187,3 +192,55 @@ def _check_interp_bary(dev):
         kernels.interp_bary(vert[0], met[0], vids.long(), pts[0])
     with pytest.raises(ValueError):
         kernels.interp_bary(vert, met, vids, pts[0])
+
+
+def _check_row_edges(dev):
+    """split_midpoint and interp_bary at the edges of their grid
+    (csrc/row_grid.cuh), f32 and f64: no rows, one row, a CTA and one
+    row either side of it, and several CTAs with a ragged last one; each
+    also with its index stream (and the other row streams) in views off
+    16-byte alignment; interp_bary also stacked at D=1 and D=3 with Q not
+    a multiple of the CTA. Outputs
+    equal to the plain versions' bit for bit, one launch per call with
+    rows, none without."""
+    rng = np.random.default_rng(19)
+    T = kernels.build.row_threads()
+    sizes = (0, 1, T - 1, T, T + 1, 3 * T + 5)
+    for dt in (torch.float32, torch.float64):
+        vert, _, _, tet, newp, li, lj = _fixture(dev, dt)
+        for n in sizes:
+            rows = (tet[:n], newp[:n], li[:n], lj[:n])
+            for a in (rows, tuple(_offset_view(x) for x in rows)):
+                before = kernels.LAUNCHES["split_midpoint"]
+                ok = kernels.split_midpoint(vert, *a)
+                ok0 = kernels.split_midpoint_plain(vert, *a)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["split_midpoint"] == before + (n > 0)
+                assert ok.shape == (n,) and torch.equal(ok, ok0)
+
+        mesh = gen.unit_cube_mesh(4, dtype=dt, device=dev)
+        P = mesh.pcap
+        # (shards, or None for an unstacked call; rows a shard)
+        cases = [(None, n) for n in sizes] + [(1, T + 37), (3, 0), (3, 1),
+                                              (3, 2 * T + 3)]
+        for D, Q in cases:
+            d = D or 1
+            pick = torch.as_tensor(rng.integers(0, int(mesh.ntet), (d, Q)),
+                                   device=dev)
+            vids = mesh.tet[pick].contiguous()
+            pts = torch.tensor(rng.uniform(0.0, 1.0, (d, Q, 3)), dtype=dt,
+                               device=dev)
+            vt = torch.stack([mesh.vert + 0.1 * s for s in range(d)])
+            met = torch.tensor(rng.uniform(0.05, 0.4, (d, P, 1)), dtype=dt,
+                               device=dev)
+            if D is None:
+                vids, pts, vt, met = vids[0], pts[0], vt[0], met[0]
+            for vi, pt in ((vids, pts), (_offset_view(vids),
+                                         _offset_view(pts))):
+                before = kernels.LAUNCHES["interp_bary"]
+                b, m = kernels.interp_bary(vt, met, vi, pt)
+                b0, m0 = kernels.interp_bary_plain(vt, met, vi, pt)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["interp_bary"] == before + (Q > 0)
+                assert b.shape == vi.shape and m.shape == vi.shape[:-1] + (1,)
+                assert torch.equal(b, b0) and torch.equal(m, m0)

@@ -25,6 +25,7 @@ import torch
 
 from parmmg_tpu_torch import kernels as tk
 from parmmg_tpu_torch.core.mesh import LEAVES, Mesh
+from parmmg_tpu_torch.kernels import interp_k
 from parmmg_tpu_torch.ops import interp as t_interp
 from parmmg_tpu_torch.ops import locate as t_loc
 from parmmg_tpu_torch.parallel.distribute import stack_meshes, unstack_mesh
@@ -319,6 +320,13 @@ def test_interp_bary_plain_matches_reference_and_pallas(ref):
         for a, b_ in ((bs[1], bf), (ms[1], mf)):
             torch.testing.assert_close(a, b_, rtol=0, atol=0,
                                        equal_nan=True)
+        # the checks the wrapper makes before a launch take an empty
+        # stream, unstacked and stacked, and still refuse a wrong width
+        interp_k._check(vert, met, vids[:0], pts[:0])
+        interp_k._check(vert[None], met[None], vids[None, :0],
+                        pts[None, :0])
+        with pytest.raises(ValueError):
+            interp_k._check(vert, met, vids[:0, :3], pts[:0])
         b6, m6 = tk.interp_bary(vert, met6, vids, pts)
         _close(b6, r[f"{dn}/aniso/bary"], scale=1.0)
         if dn == "f64":
