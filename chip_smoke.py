@@ -16,22 +16,30 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    (no launch takes dynamic shared memory);
 2. centralized path: write the structured unit cube 12^3 with the port's
    Medit writer and run the port's CLI on it (`-hsiz 0.04 -niter 1 -hgrad
-   0`, the n12-hsiz0.04 rung of bench.py), with every kernel launch
-   counter set to 0 just before and read just after; reload the output
-   and check conformity, qmin > 0 and the element count; then the same
-   adaptation once more through `adapt()` under torch.profiler, which
-   must give the CLI's mesh bit for bit, for the device busy share and
-   the kernels that take the time;
+   0`, the n12-hsiz0.04 rung of bench.py; frontier sweeps, the default),
+   with every kernel launch counter set to 0 just before and read just
+   after; reload the output and check conformity, qmin > 0 and the
+   element count in a window around the JAX package's count for the same
+   command on a CPU; print each kernel's launches, the min/median/max
+   stream rows of its launches and its calls on an empty stream (which
+   launch nothing); then the same adaptation once more through `adapt()`
+   under torch.profiler, which must give the CLI's mesh bit for bit, for
+   the device busy share and the kernels that take the time; then the
+   CLI with `-nofrontier` (full-table sweeps), counters read likewise,
+   which must give the full-table mesh of earlier slices bit for bit
+   (its element count, qmin and unit-band share);
 2c. distributed path: the same cube with the graded iso size
    h = 0.025 + 0.05 x written as a .sol, through the CLI with `-nparts 4
-   -nobalance` (f32, niter 3, hgrad 1.3, -ar 45), counters set to 0 just
-   before and read just after: interp_bary must launch at least niter
-   times and the other kernels at least once; an iteration may be rolled
-   back only on the phase-boundary validation; the merged output must be
-   conforming with qmin > 0 and an element count in a window around the
-   JAX package's count for the same command on a CPU; at the end of the
-   script, `adapt_distributed()` again under torch.profiler, which must
-   give the CLI's mesh bit for bit;
+   -nobalance` (f32, niter 3, hgrad 1.3, -ar 45; frontier sweeps),
+   counters set to 0 just before and read just after: interp_bary must
+   launch at least niter times and the other kernels at least once; an
+   iteration may be rolled back only on the phase-boundary validation;
+   the merged output must be conforming with qmin > 0 and an element
+   count in a window around the JAX package's count for the same command
+   on a CPU; launches printed as in 2; then the same with `-nofrontier`,
+   which must give the full-table element count of earlier slices; at
+   the end of the script, `adapt_distributed()` again under
+   torch.profiler, which must give the CLI's frontier mesh bit for bit;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of its own last launch on each path it runs on (tables of P
    rows, a stream of N rows; the three sweep kernels at the centralized
@@ -53,7 +61,9 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    an empty kernel on the same grid (`csrc/launch_floor.cu`), by the
    same estimator;
 4. small f64 adaptations on the card against the same runs on the CPU,
-   centralized and distributed: the per-sweep histories must be equal;
+   centralized and distributed, with frontier and with full-table sweeps:
+   the per-sweep histories must be equal; on the card, the device-to-host
+   reads inside the sweep loops are counted (torch's sync debug mode);
 5. a `{"kernels": [...]}` line, the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -74,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the vector
 # (non-tensor-core) float rates the kernels' scalar arithmetic runs on
@@ -92,18 +103,24 @@ FLOPS_PER_ROW = {
 }
 
 # the main path: bench.py's n12-hsiz0.04 rung and the element count
-# window its output must fall in (BASELINE.md: 201,001 tets on a CPU,
-# 211,264 on a TPU for the JAX package)
+# window its output must fall in, about 15 % either side of the JAX
+# package's CLI on a CPU for the same command (frontier sweeps: 184,291
+# tets; PERF.md)
 CUBE_N, HSIZ = 12, 0.04
-NE_RANGE = (180_000, 240_000)
+NE_RANGE = (157_000, 212_000)
+# the same command with -nofrontier gives the full-table mesh of earlier
+# slices bit for bit: (tets, qmin, unit-band share)
+NOFRONTIER_MESH = (198_394, "0.209259", "0.874197")
 
 # the distributed path: graded iso size h = H0 + H1 x on the same cube,
 # NPARTS shards, the CLI's defaults (niter 3, hgrad 1.3, -ar 45, f32);
-# the JAX package's CLI on a CPU gives 148,506 tets for this command
-# (with -nofrontier; PERF.md), the window is about 15 % either side
+# the window is about 15 % either side of the JAX package's CLI on a CPU
+# for this command (frontier sweeps: 148,506 tets; PERF.md); with
+# -nofrontier the port gives the full-table count of earlier slices
 GRADED_H = (0.025, 0.05)
 NPARTS, NITER = 4, 3
 DIST_NE_RANGE = (126_000, 171_000)
+DIST_NOFRONTIER_NE = 149_267
 
 # float agreement band of tests/test_m18_kernels.py `_rtol`
 RTOL = {"float32": 5e-6, "float64": 5e-11}
@@ -509,10 +526,29 @@ def issue_floor(name: str, dtype_name: str, C: int, N: int):
                                * 1e3)
 
 
-def main_path(n: int, hsiz: float, ne_range):
-    """Phase 2: the port's CLI on the unit cube n^3, launch counters set
-    to 0 just before and read just after. Returns (output mesh on the
-    card, launches, shapes of each kernel's last launch)."""
+def launch_report(label: str) -> None:
+    """Print, for the path just run, each kernel's launches, the min /
+    median / max stream rows of its launches (per shard for a stacked
+    launch) and its calls on an empty stream, which launch nothing."""
+    from parmmg_tpu_torch import kernels
+
+    parts = []
+    for k in kernels.NAMES:
+        rows = sorted(kernels.ROWS[k])
+        shape = (f"N min {rows[0]} median {statistics.median(rows):g} "
+                 f"max {rows[-1]}" if rows else "no launch")
+        parts.append(f"{k} {kernels.LAUNCHES[k]} ({shape}; "
+                     f"{kernels.EMPTY[k]} empty calls)")
+    print(f"## {label} launches: " + ", ".join(parts))
+
+
+def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None):
+    """Phase 2: the port's CLI on the unit cube n^3 (with the `extra`
+    flags), launch counters set to 0 just before and read just after.
+    The element count must fall in `ne_range`, or with `expect` =
+    (tets, qmin, in_band) the mesh must give those numbers. Returns
+    (output mesh on the card, launches, shapes of each kernel's last
+    launch)."""
     import torch
 
     from parmmg_tpu_torch import __main__ as cli
@@ -522,6 +558,7 @@ def main_path(n: int, hsiz: float, ne_range):
     from parmmg_tpu_torch.ops import quality
     from parmmg_tpu_torch.utils import conformity, gen
 
+    label = "main path" + "".join(f" {x}" for x in extra)
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         cube = os.path.join(work, f"cube{n}.mesh")
         out = os.path.join(work, "out.mesh")
@@ -531,8 +568,8 @@ def main_path(n: int, hsiz: float, ne_range):
                                         trrefs=raw["trrefs"], device="cpu"),
                         cube)
         argv = [cube, "-hsiz", str(hsiz), "-niter", "1", "-hgrad", "0",
-                "-out", out]
-        print(f"## main path: python -m parmmg_tpu_torch {' '.join(argv)}",
+                "-out", out, *extra]
+        print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
               flush=True)
         kernels.reset_launches()
         buf = io.StringIO()
@@ -543,27 +580,32 @@ def main_path(n: int, hsiz: float, ne_range):
         wall = time.perf_counter() - t0
         launches, shapes = dict(kernels.LAUNCHES), dict(kernels.SHAPES)
         print(buf.getvalue())
+        launch_report(label)
         require(rc == 0, f"CLI exited {rc}")
         m = medit.load_mesh(out, medit.met_filename(out), device="cuda")
     # a wrapper launches its kernel only for CUDA tensors: every counter
     # above 0 shows the main path's mesh lived on the card
     for name in CENTRAL:
         require(launches[name] > 0, f"kernel {name} never launched on the "
-                "main path")
+                f"{label}")
     rep = conformity.check_mesh(m)
     require(rep.ok, f"output mesh not conforming: {rep}")
     h = quality.quality_histogram(m)
     ne, qmin, qavg = int(h.ne), float(h.qmin), float(h.qavg)
     in_band = quality.in_band_fraction(quality.mesh_length_stats(m))
     require(qmin > 0, f"qmin {qmin} <= 0")
-    require(ne_range[0] <= ne <= ne_range[1], f"ne {ne} outside {ne_range}")
-    print(f"## main path: wall {wall:.3f} s, phases " + ", ".join(
+    if expect is None:
+        require(ne_range[0] <= ne <= ne_range[1],
+                f"ne {ne} outside {ne_range}")
+    else:
+        got = (ne, f"{qmin:.6f}", f"{in_band:.6f}")
+        require(got == expect, f"{label}: (ne, qmin, in_band) {got}, not "
+                f"the full-table mesh's {expect}")
+    print(f"## {label}: wall {wall:.3f} s, phases " + ", ".join(
         f"{k} {v:.3f} s" for k, v in phase_times(buf.getvalue()).items()))
-    print(f"## main path: ne {ne} np {int(m.npoin)} qmin {qmin:.6f} "
-          f"qavg {qavg:.6f} in_band {in_band:.6f} conforming")
-    print("## main path launches: " + ", ".join(
-        f"{k} {launches[k]} (last at N={shapes[k][0]}, P={shapes[k][1]})"
-        for k in CENTRAL) + f"; interp_bary {launches['interp_bary']}")
+    print(f"## {label}: ne {ne} np {int(m.npoin)} qmin {qmin:.6f} "
+          f"qavg {qavg:.6f} in_band {in_band:.6f} conforming"
+          + ("" if expect is None else ", the full-table mesh"))
     return m, launches, shapes
 
 
@@ -650,10 +692,12 @@ def write_graded_cube(work: str, n: int):
     return cube, sol
 
 
-def distributed_path(n: int, ne_range):
-    """Phase 2c: the port's CLI with `-nparts NPARTS -nobalance` on the
-    graded cube, launch counters set to 0 just before and read just
-    after. Returns (merged output mesh on the card, launches, shapes)."""
+def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
+    """Phase 2c: the port's CLI with `-nparts NPARTS -nobalance` (and the
+    `extra` flags) on the graded cube, launch counters set to 0 just
+    before and read just after. The element count must fall in
+    `ne_range`, or equal `expect_ne`. Returns (merged output mesh on the
+    card, launches, shapes)."""
     import torch
 
     from parmmg_tpu_torch import __main__ as cli
@@ -662,13 +706,14 @@ def distributed_path(n: int, ne_range):
     from parmmg_tpu_torch.ops import quality
     from parmmg_tpu_torch.utils import conformity
 
+    label = "distributed path" + "".join(f" {x}" for x in extra)
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         cube, sol = write_graded_cube(work, n)
         out = os.path.join(work, "dist.mesh")
         argv = [cube, "-sol", sol, "-nparts", str(NPARTS), "-nobalance",
-                "-niter", str(NITER), "-out", out]
-        print(f"## distributed path: python -m parmmg_tpu_torch "
-              f"{' '.join(argv)}", flush=True)
+                "-niter", str(NITER), "-out", out, *extra]
+        print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
+              flush=True)
         kernels.reset_launches()
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -678,31 +723,33 @@ def distributed_path(n: int, ne_range):
         wall = time.perf_counter() - t0
         launches, shapes = dict(kernels.LAUNCHES), dict(kernels.SHAPES)
         print(buf.getvalue())
+        launch_report(label)
         require(rc == 0, f"CLI exited {rc}")
         m = medit.load_mesh(out, medit.met_filename(out), device="cuda")
     check_rollbacks([ln for ln in buf.getvalue().splitlines()
-                     if "rolled back" in ln], "the distributed CLI")
+                     if "rolled back" in ln], f"the {label} CLI")
     require(launches["interp_bary"] >= NITER,
             f"interp_bary launched {launches['interp_bary']} times on the "
-            f"distributed path, fewer than niter={NITER}")
+            f"{label}, fewer than niter={NITER}")
     for name in kernels.NAMES:
         require(launches[name] > 0, f"kernel {name} never launched on the "
-                "distributed path")
+                f"{label}")
     rep = conformity.check_mesh(m)
     require(rep.ok, f"merged output not conforming: {rep}")
     h = quality.quality_histogram(m)
     ne, qmin = int(h.ne), float(h.qmin)
     require(qmin > 0, f"distributed qmin {qmin} <= 0")
-    require(ne_range[0] <= ne <= ne_range[1],
-            f"distributed ne {ne} outside {ne_range}")
+    if expect_ne is None:
+        require(ne_range[0] <= ne <= ne_range[1],
+                f"distributed ne {ne} outside {ne_range}")
+    else:
+        require(ne == expect_ne, f"{label}: ne {ne}, not the full-table "
+                f"count {expect_ne}")
     in_band = quality.in_band_fraction(quality.mesh_length_stats(m))
-    print(f"## distributed path: wall {wall:.3f} s, phases " + ", ".join(
+    print(f"## {label}: wall {wall:.3f} s, phases " + ", ".join(
         f"{k} {v:.3f} s" for k, v in phase_times(buf.getvalue()).items()))
-    print(f"## distributed path: ne {ne} np {int(m.npoin)} qmin {qmin:.6g} "
+    print(f"## {label}: ne {ne} np {int(m.npoin)} qmin {qmin:.6g} "
           f"qavg {float(h.qavg):.6f} in_band {in_band:.6f} conforming")
-    print("## distributed path launches: " + ", ".join(
-        f"{k} {launches[k]} (last at {shapes.get(k)})"
-        for k in kernels.NAMES))
     return m, launches, shapes
 
 
@@ -985,10 +1032,37 @@ def _history(info):
             for r in info["history"]]
 
 
+@contextlib.contextmanager
+def counting_reads(on: bool):
+    """With `on`, make every device-to-host read inside the drivers'
+    sweep loops (`run_sweep_loop`, shared by both drivers) a warning."""
+    import torch
+
+    from parmmg_tpu_torch.models import adapt as adapt_mod
+    from parmmg_tpu_torch.models import distributed as dist_mod
+
+    real = adapt_mod.run_sweep_loop
+
+    def loop(*a, **kw):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    if on:
+        adapt_mod.run_sweep_loop = dist_mod.run_sweep_loop = loop
+    try:
+        yield
+    finally:
+        adapt_mod.run_sweep_loop = dist_mod.run_sweep_loop = real
+
+
 def small_f64_runs() -> None:
     """Phase 4: unit cube n=4 at f64 on the card and on the CPU, through
     `adapt()` and through `adapt_distributed()` on 2 shards with
-    -nobalance: the per-sweep histories must be equal."""
+    -nobalance, each with frontier and with full-table sweeps: the
+    per-sweep histories must be equal."""
     import torch
 
     from parmmg_tpu_torch.models.adapt import AdaptOptions, adapt
@@ -996,27 +1070,38 @@ def small_f64_runs() -> None:
         DistOptions, adapt_distributed, merge_adapted)
     from parmmg_tpu_torch.utils import conformity, gen
 
-    runs = {
-        "centralized": lambda m, d: adapt(m, AdaptOptions(
-            hsiz=0.18, niter=1, max_sweeps=6, hgrad=None), device=d),
-        "distributed": lambda m, d: adapt_distributed(m, DistOptions(
-            hsiz=0.18, niter=2, max_sweeps=6, hgrad=None, nparts=2,
-            nobalancing=True, min_shard_elts=16), device=d),
-    }
+    runs = {}
+    for fr in (True, False):
+        sweeps = "frontier" if fr else "full-table"
+        runs[f"centralized {sweeps}"] = lambda m, d, fr=fr: adapt(
+            m, AdaptOptions(hsiz=0.18, niter=1, max_sweeps=6, hgrad=None,
+                            frontier=fr), device=d)
+        runs[f"distributed {sweeps}"] = lambda m, d, fr=fr: \
+            adapt_distributed(m, DistOptions(
+                hsiz=0.18, niter=2, max_sweeps=6, hgrad=None, nparts=2,
+                nobalancing=True, min_shard_elts=16, frontier=fr), device=d)
     threads = torch.get_num_threads()
     for label, run in runs.items():
         hist = {}
         for d in ("cuda", "cpu"):
             # one host thread: at these sizes more only add synchronisation
             torch.set_num_threads(1 if d == "cpu" else threads)
-            out = run(gen.unit_cube_mesh(4, dtype=torch.float64, device=d),
-                      d)
+            mesh = gen.unit_cube_mesh(4, dtype=torch.float64, device=d)
+            with warnings.catch_warnings(record=True) as caught:
+                # every device-to-host read of the sweep loops, as warnings
+                warnings.simplefilter("always")
+                with counting_reads(d == "cuda"):
+                    out = run(mesh, d)
             mm = out[0] if len(out) == 2 else merge_adapted(out[0], out[1])
             require(conformity.check_mesh(mm).ok,
                     f"f64 {label} run on {d} not conforming")
             hist[d] = _history(out[-1])
             print(f"## f64 n=4 {label} on {d}: ne {int(mm.ntet)} status "
                   f"{int(out[-1]['status'])} history {hist[d]}")
+            if d == "cuda":
+                reads = sum("synchroniz" in str(w.message) for w in caught)
+                print(f"## f64 n=4 {label}: {reads} host reads in the sweep "
+                      f"loops, {reads / len(hist[d]):.1f} a sweep record")
         first = next((i for i, (a, b) in enumerate(zip(hist["cuda"],
                                                        hist["cpu"]))
                       if a != b), None)
@@ -1041,8 +1126,12 @@ def main() -> int:
     t0 = time.perf_counter()
     m, launches, shapes = main_path(CUBE_N, HSIZ, NE_RANGE)
     profile_main_path(CUBE_N, HSIZ, m)
+    main_path(CUBE_N, HSIZ, NE_RANGE, extra=("-nofrontier",),
+              expect=NOFRONTIER_MESH)
     print(f"## phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
     m_d, launches_d, shapes_d = distributed_path(CUBE_N, DIST_NE_RANGE)
+    distributed_path(CUBE_N, DIST_NE_RANGE, extra=("-nofrontier",),
+                     expect_ne=DIST_NOFRONTIER_NE)
     print(f"## phase 2c done at {time.perf_counter() - t0:.1f} s", flush=True)
     results = check_kernels(m, shapes, HSIZ, "centralized")
     # the same kernels at the per-shard shapes of the distributed path

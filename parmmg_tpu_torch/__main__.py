@@ -3,7 +3,8 @@
 
 Counterpart of `parmmg_tpu/__main__.py` for centralized input and output,
 with the same flag names: load → adapt on the GPU → save, printing the
-reference-style quality and edge-length histograms. `-nparts N
+reference-style quality and edge-length histograms. Sweeps are
+active-set (frontier) sweeps unless `-nofrontier` is given. `-nparts N
 -nobalance` adapts on N stacked shards with frozen interfaces and writes
 the merged mesh. Flags of paths this slice of the port does not carry
 (balancing between iterations, distributed I/O, fields, level-set, VTK,
@@ -71,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-noswap", action="store_true")
     p.add_argument("-nomove", action="store_true")
     p.add_argument("-nofrontier", dest="nofrontier", action="store_true",
-                   help="full-table sweeps (the only mode of this port "
-                   "so far; accepted)")
+                   help="disable active-set (frontier) sweeps: full-table "
+                   "sweeps")
     p.add_argument("-nosurf", action="store_true",
                    help="freeze the boundary surface exactly")
     p.add_argument("-opnbdy", action="store_true",
@@ -224,7 +225,7 @@ def main(argv=None, device=None) -> int:
         aniso=args.aniso, nofem=args.nofem, local_params=local_params,
         noinsert=args.noinsert, noswap=args.noswap, nomove=args.nomove,
         nosurf=args.nosurf, opnbdy=args.opnbdy, verbose=args.verbose,
-        mem_budget_mb=args.mem, frontier=False,
+        mem_budget_mb=args.mem, frontier=not args.nofrontier,
         nparts=args.nparts, nobalancing=args.nobalancing,
         min_shard_elts=args.mesh_size or DistOptions.min_shard_elts,
     )

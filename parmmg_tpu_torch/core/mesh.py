@@ -311,9 +311,12 @@ def tet_volumes(mesh: Mesh) -> torch.Tensor:
     return vol_of(mesh.vert, mesh.tet)
 
 
-def _compact_impl(mesh: Mesh) -> Mesh:
+def _compact_impl(mesh: Mesh, aux=None):
     """Compaction core: drop vertices no valid tet/tria/edge references
-    (unless REQUIRED) and move every entity class to an array prefix."""
+    (unless REQUIRED) and move every entity class to an array prefix.
+    `aux`, an optional [PC, ...] per-vertex array (the frontier masks),
+    follows the same vertex renumbering (dropped vertices fall away, the
+    tail is zeros). Returns (aux, mesh)."""
     from ..ops import common as _common
 
     pc = mesh.pcap
@@ -355,7 +358,9 @@ def _compact_impl(mesh: Mesh) -> Mesh:
     edge, edmask, (edref, edtag) = compact_ent(
         mesh.edge, mesh.edmask, (mesh.edref, mesh.edtag), (0, 0)
     )
-    return mesh.replace(
+    aux_out = None if aux is None else _common.scatter(
+        torch.zeros_like(aux), vidx, aux)
+    return aux_out, mesh.replace(
         vert=scat_v(mesh.vert, 0.0), vref=scat_v(mesh.vref, 0),
         vtag=scat_v(mesh.vtag, 0), vmask=scat_v(keep_v, False),
         met=scat_v(mesh.met, 1.0), ls=scat_v(mesh.ls, 0.0),
@@ -371,4 +376,12 @@ def _compact_impl(mesh: Mesh) -> Mesh:
 def compact(mesh: Mesh) -> Mesh:
     """Compact valid entities to array prefixes and drop unreferenced
     vertices (the batched `PMMG_packParMesh` analog)."""
-    return _compact_impl(mesh)
+    return _compact_impl(mesh)[1]
+
+
+def compact_aux(mesh: Mesh, aux):
+    """`compact` that also remaps an auxiliary per-vertex array (the
+    frontier masks) through the same vertex renumbering. Returns (mesh,
+    aux)."""
+    aux_out, out = _compact_impl(mesh, aux)
+    return out, aux_out

@@ -17,12 +17,15 @@ A wrapper launches its kernel for CUDA tensors (or raises: a failed build
 or launch is a `KernelError`) and takes the plain version only for
 tensors on the CPU. `LAUNCHES` counts the kernel
 launches per name, `SHAPES` holds each one's last (rows, table rows
-[, shards]).
+[, shards]), `ROWS` every launch's stream rows and `EMPTY` the calls on
+an empty stream, which launch nothing.
 """
 
 from .build import SOURCES as NAMES  # noqa: F401
 from .build import (  # noqa: F401
+    EMPTY,
     LAUNCHES,
+    ROWS,
     SHAPES,
     KernelError,
     build_all,

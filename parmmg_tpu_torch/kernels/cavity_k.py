@@ -51,6 +51,7 @@ def collapse_cavity(vert, met, new_tet, vol_floor):
     _check_stream(vol_floor, 0, vert.dtype, n, vert.device, "vol_floor")
     out = torch.empty(n, dtype=vert.dtype, device=vert.device)
     if n == 0:
+        build.count_empty("collapse_cavity")
         return out
     fn = build.function("collapse_cavity", vert.dtype)
     rc = fn(vert.data_ptr(), met.data_ptr(), met.shape[1], vert.shape[0],
@@ -87,6 +88,7 @@ def split_midpoint(vert, tet, newp, li, lj):
     _check_stream(lj, 0, torch.int32, n, vert.device, "lj")
     ok = torch.empty(n, dtype=torch.bool, device=vert.device)
     if n == 0:
+        build.count_empty("split_midpoint")
         return ok
     fn = build.function("split_midpoint", vert.dtype)
     rc = fn(vert.data_ptr(), vert.shape[0], tet.data_ptr(), newp.data_ptr(),

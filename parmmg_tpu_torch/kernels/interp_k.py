@@ -91,6 +91,7 @@ def interp_bary(vert, met, vids, pts):
     bary = torch.empty(lead + (4,), dtype=vert.dtype, device=vert.device)
     met_q = torch.empty(lead + (1,), dtype=vert.dtype, device=vert.device)
     if d * q == 0:
+        build.count_empty(_NAME)
         return bary, met_q
     fn = build.function(_NAME, vert.dtype)
     rc = fn(vert.data_ptr(), met.data_ptr(), p, vids.data_ptr(),

@@ -148,6 +148,7 @@ def quality_vol(vert, met, tet):
     q = torch.empty(n, dtype=vert.dtype, device=vert.device)
     vol = torch.empty(n, dtype=vert.dtype, device=vert.device)
     if n == 0:
+        build.count_empty(_NAME)
         return q, vol
     fn = build.function(_NAME, vert.dtype)
     rc = fn(vert.data_ptr(), met.data_ptr(), met.shape[1], vert.shape[0],

@@ -1,18 +1,23 @@
 """Single-shard adaptation driver: the batched analog of the Mmg kernel.
 
-Counterpart of `parmmg_tpu/models/adapt.py` on the full-table sweep path
-(`AdaptOptions(frontier=False)`). The host runs Jacobi *sweeps* of the
-batched operators — split long edges, collapse short ones, 3-2/2-3 swaps,
-smoothing — until the mesh is a unit mesh for the metric, growing
-capacities between sweeps. Every sweep is the JAX package's per-op
-(`fused=False`) sweep: each operator is a plain function on tensors, and
-the phase skip and capacity decisions are host branches on synced
-scalars.
+Counterpart of `parmmg_tpu/models/adapt.py`. The host runs Jacobi
+*sweeps* of the batched operators — split long edges, collapse short
+ones, 3-2/2-3 swaps, smoothing — until the mesh is a unit mesh for the
+metric, growing capacities between sweeps. Every sweep is the JAX
+package's per-op (`fused=False`) sweep: each operator is a plain
+function on tensors, and the phase skip, capacity and frontier
+decisions are host branches on synced scalars.
+
+Sweeps are active-set (frontier) sweeps by default, as in the JAX
+package: each sweep records the vertices it changed, the next one gates
+its candidates on their one-ring closure and reuses or merges the edge
+and face tables instead of rebuilding them. `frontier=False` gives the
+full-table sweeps.
 
 Not ported in this slice, refused with `NotImplementedError` naming the
-ROADMAP item that brings them: active-set (frontier) sweeps, solution
-fields/level-set/displacement post-passes, checkpointing, fault
-injection, the run governor and kernel-mode switching.
+ROADMAP item that brings them: solution fields/level-set/displacement
+post-passes, checkpointing, fault injection, the run governor and
+kernel-mode switching.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ import torch
 
 from .. import resolve_device
 from ..core import adjacency, metric as metric_mod, tags
-from ..core.mesh import Mesh, compact, tet_volumes
-from ..ops import analysis, collapse, quality, smooth, split, swap
+from ..core.mesh import Mesh, compact, compact_aux, tet_volumes
+from ..ops import analysis, collapse, common, quality, smooth, split, swap
 from ..ops.common import scatter, take
 
 
@@ -73,9 +78,10 @@ class AdaptOptions:
     # device-memory budget in MB for the mesh arrays; None = 90% of the
     # device's memory (the host's, on the CPU)
     mem_budget_mb: Optional[float] = None
-    # active-set sweeps are the next slice (ROADMAP queue 1, item 10);
-    # True is refused until then
-    frontier: bool = False
+    # active-set (frontier) sweeps: each sweep records the vertices it
+    # changed and the next one addresses only entities near them (CLI
+    # -nofrontier / False = full-table sweeps)
+    frontier: bool = True
     # phase-boundary validation after every iteration: "off" | "basic"
     # (finite coordinates and metric, positive live tets, connectivity
     # in range)
@@ -93,12 +99,6 @@ class AdaptOptions:
 def check_supported(opts: AdaptOptions) -> None:
     """Raise `NotImplementedError` for every option this slice of the
     port does not carry."""
-    if opts.frontier:
-        raise NotImplementedError(
-            "frontier (active-set) sweeps are not ported yet: ROADMAP "
-            "queue 1, item 10 brings them; pass frontier=False (CLI "
-            "-nofrontier is the default here)"
-        )
     for name in ("checkpoint_dir", "checkpoint_store", "faults", "govern"):
         if getattr(opts, name) not in (None, False):
             raise NotImplementedError(
@@ -141,61 +141,241 @@ def _len_band_counts(mesh: Mesh, edges, emask):
     return band.to(torch.int32).sum(), emask.to(torch.int32).sum()
 
 
+class Frontier(NamedTuple):
+    """Active-set state carried from one sweep to the next.
+
+    `changed` is the raw [PC] bool set of vertices the previous sweep
+    changed (geometry beyond smooth.MOVE_TOL, or 1-ring topology); each
+    operator gates on its one-ring closure. `dirty` (host int) is the
+    staleness level of `tables` = (edges, emask, t2e, n_unique), the
+    edge tables of the last rebuild: 0 = current (reuse them), 1 =
+    topology deltas with stable numbering since (merge them with
+    `adjacency.merge_unique_edges`), 2 = a compaction with holes
+    renumbered the tets since (compact and rebuild). `adja_ok` (host
+    bool) marks `mesh.adja` valid for the current numbering."""
+
+    changed: torch.Tensor
+    dirty: int
+    tables: tuple
+    adja_ok: bool
+
+    @staticmethod
+    def from_jax_state(arrays: dict, device=None) -> "Frontier":
+        """The port's Frontier from a JAX package's `Frontier` as numpy
+        arrays (keys `changed`, `dirty`, `edges`, `emask`, `t2e`,
+        `n_unique`, `adja_ok`), as `Mesh.from_jax_state` does for a
+        mesh."""
+        from .. import resolve_device
+
+        dev = resolve_device(device)
+
+        def t(k, dtype):
+            return torch.as_tensor(np.asarray(arrays[k]), dtype=dtype,
+                                   device=dev)
+
+        return Frontier(
+            changed=t("changed", torch.bool),
+            dirty=int(np.asarray(arrays["dirty"])),
+            tables=(t("edges", torch.int32), t("emask", torch.bool),
+                    t("t2e", torch.int32), t("n_unique", torch.int32)),
+            adja_ok=bool(np.asarray(arrays["adja_ok"])),
+        )
+
+
+def empty_frontier(mesh: Mesh, ecap: int) -> Frontier:
+    """Initial frontier: every vertex active (which reproduces the
+    full-table sweep) over stale tables."""
+    dev = mesh.device
+    tables = (
+        torch.zeros((ecap, 2), dtype=torch.int32, device=dev),
+        torch.zeros(ecap, dtype=torch.bool, device=dev),
+        torch.full((mesh.tcap, 6), -1, dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return Frontier(torch.ones(mesh.pcap, dtype=torch.bool, device=dev),
+                    2, tables, False)
+
+
+def stacked_frontier(shards: List[Mesh], ecap: int, changed=None):
+    """Per-shard frontiers of the distributed sweeps over stale tables:
+    each shard's changed mask (default all active, the full-table
+    sweep), with `dirty` and `adja_ok` shared by every shard."""
+    out = []
+    for i, m in enumerate(shards):
+        fr = empty_frontier(m, ecap)
+        if changed is not None:
+            fr = fr._replace(changed=changed[i].to(torch.bool))
+        out.append(fr)
+    return out
+
+
+def pad_changed(changed, pcap: int):
+    """Changed masks (one per shard) padded to a grown vertex capacity:
+    growth appends slots, so ids are stable and the new tail is
+    inactive. Capacities never shrink."""
+    return [torch.cat([c, c.new_zeros(pcap - c.shape[0])])
+            if c.shape[0] < pcap else c for c in changed]
+
+
 def _sweep_body(mesh: Mesh, ecap: int, noinsert: bool = False,
                 noswap: bool = False, nomove: bool = False,
-                nosurf: bool = False, hausd=0.01, phase_skip: bool = True):
-    """One full-table sweep: split → (collapse → swaps → smooth unless
-    the sweep is split-dominant). Compaction runs before every operator
-    that allocates, so live entities form array prefixes. Returns (mesh,
-    SweepStats)."""
-    zero = torch.zeros((), dtype=torch.int32, device=mesh.device)
-    mesh = compact(mesh)
-    edges, emask, t2e, n_unique = adjacency.unique_edges(mesh, ecap)
-    n_active = n_unique
-    growth = False
-    if not noinsert:
-        mesh, s_split = split.split_long_edges(mesh, edges, emask, t2e,
-                                               nosurf=nosurf)
+                nosurf: bool = False, hausd=0.01, phase_skip: bool = True,
+                frontier: Optional[Frontier] = None):
+    """One sweep: split → (collapse → swaps → smooth unless the sweep is
+    split-dominant). Compaction runs before every operator that
+    allocates, so live entities form array prefixes. Returns (mesh,
+    SweepStats), and the successor Frontier as a third element when
+    `frontier` is given.
+
+    Full-table sweep (`frontier=None`): the tables are rebuilt after
+    every topological operator. Frontier sweep: candidates are gated on
+    the one-ring closure of what changed, the entry tables are reused,
+    merged or rebuilt by `frontier.dirty`, a table is rebuilt after an
+    operator only when it acted, `build_adjacency` before the 2-3 swap is
+    skipped while the adjacency is valid and the swapped faces are
+    re-matched in place after it. Every such decision is a host read."""
+    fr = frontier is not None
+    dev = mesh.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _closure(m, base):
+        return common.one_ring_closure(m.tet, m.tmask, base)
+
+    if not fr:
         mesh = compact(mesh)
-        edges, emask, t2e, nu = adjacency.unique_edges(mesh, ecap)
-        n_unique = torch.maximum(n_unique, nu)
+        edges, emask, t2e, n_unique = adjacency.unique_edges(mesh, ecap)
+        n_active = n_unique
+        act = chg = adja_ok = None
+    else:
+        act, dirty, tables_in, adja_ok = frontier
+        if dirty >= 2:
+            # a renumbering compaction ran: compact and re-sort
+            mesh, act = compact_aux(mesh, act)
+            edges, emask, t2e, n_unique = adjacency.unique_edges(mesh, ecap)
+            adja_ok = False
+        elif dirty >= 1:
+            # stable-numbering deltas: fold them into the tables
+            edges, emask, t2e, n_unique = adjacency.merge_unique_edges(
+                mesh, act, *tables_in, K=max(64, mesh.tcap // 4))
+        else:
+            edges, emask, t2e, n_unique = tables_in
+        chg = torch.zeros(mesh.pcap, dtype=torch.bool, device=dev)
+        g0 = _closure(mesh, act)
+        n_active = (emask & (take(g0, edges[:, 0]) | take(g0, edges[:, 1]))
+                    ).to(torch.int32).sum()
+
+    def _rebuild(m, aux):
+        """compact (+ the frontier masks) and a fresh edge table."""
+        if aux is None:
+            m = compact(m)
+        else:
+            m, aux = compact_aux(m, aux)
+        e, em, t2, nu = adjacency.unique_edges(m, ecap)
+        return m, aux, e, em, t2, torch.maximum(n_unique, nu)
+
+    growth = did_split = False
+    if not noinsert:
+        mesh, s_split = split.split_long_edges(
+            mesh, edges, emask, t2e, nosurf=nosurf,
+            active=g0 if fr else None)
         nsplit, capped = s_split.nsplit, s_split.capped
-        if phase_skip:
-            # split-dominant sweeps skip the quality tail (host branch)
-            growth = bool(
-                (nsplit > torch.clamp(mesh.ntet // 10, min=64)) & ~capped
-            )
+        # split-dominant sweeps skip the quality tail (host branch)
+        split_dominant = (nsplit > torch.clamp(mesh.ntet // 10, min=64)) \
+            & ~capped
+        if not fr:
+            mesh, _, edges, emask, t2e, n_unique = _rebuild(mesh, None)
+            growth = phase_skip and bool(split_dominant)
+        else:
+            # one host read for both decisions (compaction keeps ntet)
+            did_split, dominant = torch.stack(
+                [nsplit > 0, split_dominant]).tolist()
+            growth = phase_skip and dominant
+            chg = chg | s_split.changed_v
+            if did_split:
+                mesh, aux, edges, emask, t2e, n_unique = _rebuild(
+                    mesh, torch.stack([act, chg], dim=1))
+                act, chg = aux[:, 0], aux[:, 1]
     else:
         nsplit = zero
-        capped = torch.zeros((), dtype=torch.bool, device=mesh.device)
+        capped = torch.zeros((), dtype=torch.bool, device=dev)
 
     ncollapse = nswap = nmoved = zero
-    if not growth:
+    dirty_out = 0
+    if growth:
+        # the skipped tail leaves the post-split tables, current either
+        # way; the adjacency stays valid only if the split did nothing
+        if fr:
+            adja_ok = adja_ok and not did_split
+    else:
+        av = act
         mesh, s_col = collapse.collapse_short_edges(
-            mesh, edges, emask, t2e, hausd=hausd, nosurf=nosurf)
+            mesh, edges, emask, t2e, hausd=hausd, nosurf=nosurf,
+            active=_closure(mesh, av | chg) if fr else None)
         ncollapse = s_col.ncollapse
-        mesh = compact(mesh)
-        edges, emask, t2e, nu = adjacency.unique_edges(mesh, ecap)
-        n_unique = torch.maximum(n_unique, nu)
+        did_collapse = False
+        if not fr:
+            mesh, _, edges, emask, t2e, n_unique = _rebuild(mesh, None)
+        else:
+            chg = chg | s_col.changed_v
+            did_collapse = bool(ncollapse > 0)
+            if did_collapse:
+                mesh, aux, edges, emask, t2e, n_unique = _rebuild(
+                    mesh, torch.stack([av, chg], dim=1))
+                av, chg = aux[:, 0], aux[:, 1]
         if not noswap:
-            mesh, s_32 = swap.swap_32(mesh, edges, emask, t2e)
+            mesh, s_32 = swap.swap_32(
+                mesh, edges, emask, t2e,
+                active=_closure(mesh, av | chg) if fr else None)
             # swaps delete no vertex: the post-collapse edge list stays
             # valid for swap_23's new-edge check and for smoothing
-            mesh = adjacency.build_adjacency(compact(mesh))
-            mesh, s_23 = swap.swap_23(mesh, edges, emask)
-            mesh = compact(mesh)
+            if not fr:
+                mesh = adjacency.build_adjacency(compact(mesh))
+                mesh, s_23 = swap.swap_23(mesh, edges, emask)
+                mesh = compact(mesh)
+            else:
+                chg = chg | s_32.changed_v
+                swapped32 = bool(s_32.nswap32 > 0)
+                if not adja_ok or did_split or did_collapse or swapped32:
+                    mesh, aux = compact_aux(mesh, torch.stack([av, chg], 1))
+                    mesh = adjacency.build_adjacency(mesh)
+                    av, chg = aux[:, 0], aux[:, 1]
+                mesh, s_23 = swap.swap_23(mesh, edges, emask,
+                                          active=_closure(mesh, av | chg))
+                chg = chg | s_23.changed_v
+                # 2-3 swaps append into the live prefix and delete no
+                # vertex: no compaction, the swapped faces are re-matched
+                # in place
+                swapped23 = bool(s_23.nswap23 > 0)
+                if swapped23:
+                    mesh = adjacency.update_adjacency(
+                        mesh, s_23.changed_v, K=max(64, mesh.tcap // 2))
+                adja_ok = True
+                # exit tables' staleness: a 3-2 swap left holes, so the
+                # compaction above renumbered the tets (2); 2-3 swaps
+                # alone are stable-numbering deltas (1)
+                dirty_out = 2 if swapped32 else 1 if swapped23 else 0
             nswap = s_32.nswap32 + s_23.nswap23
+        elif fr:
+            adja_ok = adja_ok and not did_split and not did_collapse
         if not nomove:
-            mesh, s_sm = smooth.smooth_vertices(mesh, edges, emask,
-                                                nosurf=nosurf)
+            mesh, s_sm = smooth.smooth_vertices(
+                mesh, edges, emask, nosurf=nosurf,
+                active=_closure(mesh, av | chg) if fr else None)
             nmoved = s_sm.nmoved
+            if fr:
+                chg = chg | s_sm.changed_v
 
     n_len_unit, n_len_edges = _len_band_counts(mesh, edges, emask)
-    return mesh, SweepStats(
+    stats = SweepStats(
         nsplit=nsplit, ncollapse=ncollapse, nswap=nswap, nmoved=nmoved,
         n_unique=n_unique, split_capped=capped, n_active=n_active,
         n_len_unit=n_len_unit, n_len_edges=n_len_edges,
     )
+    if not fr:
+        return mesh, stats
+    return mesh, stats, Frontier(changed=chg, dirty=dirty_out,
+                                 tables=(edges, emask, t2e, n_unique),
+                                 adja_ok=adja_ok)
 
 
 # history columns: one row of host ints per executed sweep
@@ -448,12 +628,24 @@ def run_sweep_loop(state, opts: AdaptOptions, emult: List[float],
 def run_batched_sweep_loop(mesh: Mesh, opts: AdaptOptions,
                            emult: List[float], history: List[dict],
                            it: int, hausd) -> Mesh:
-    """The single-shard sweep loop: `run_sweep_loop` over `_sweep_body`."""
+    """The single-shard sweep loop: `run_sweep_loop` over `_sweep_body`.
+    With `opts.frontier` the frontier is carried from sweep to sweep; a
+    capacity or edge-cap event changes the table shapes and restarts it
+    full (the JAX package's unfused loop)."""
+    fr_cell: list = [None]
+
     def sweep_fn(m, ecap):
-        m, stats = _sweep_body(
-            m, ecap, noinsert=opts.noinsert, noswap=opts.noswap,
-            nomove=opts.nomove, nosurf=opts.nosurf, hausd=hausd,
-        )
+        kw = dict(noinsert=opts.noinsert, noswap=opts.noswap,
+                  nomove=opts.nomove, nosurf=opts.nosurf, hausd=hausd)
+        if not opts.frontier:
+            m, stats = _sweep_body(m, ecap, **kw)
+            return m, _hist_row(stats, m)
+        fr = fr_cell[0]
+        if (fr is None or fr.changed.shape[0] != m.pcap
+                or fr.tables[0].shape[0] != ecap
+                or fr.tables[2].shape[0] != m.tcap):
+            fr = empty_frontier(m, ecap)
+        m, stats, fr_cell[0] = _sweep_body(m, ecap, frontier=fr, **kw)
         return m, _hist_row(stats, m)
 
     return run_sweep_loop(mesh, opts, emult, history, it,

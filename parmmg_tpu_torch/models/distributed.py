@@ -15,8 +15,12 @@ Each sweep runs the single-shard `_sweep_body` once per shard (the JAX
 package vmaps it over the shard axis, which gives the same per-shard
 results). What the shards share stays shared: the unique-edge cap from
 the common tet capacity, growth to the largest shard's need, no
-split-dominant phase skip, and the convergence rule on the record summed
-over shards.
+split-dominant phase skip, the convergence rule on the record summed
+over shards, and, with frontier sweeps, the tables' staleness level (the
+largest over the shards) and adjacency validity (all shards). The
+per-shard frontier masks are carried from sweep to sweep and, through
+the compaction, from one iteration to the next; a drained carry skips
+the iteration's sweeps.
 
 This slice runs with `nobalancing=True` (`-nobalance`): interfaces stay
 where the partition put them. Interface displacement and graph balancing
@@ -36,7 +40,7 @@ import torch
 
 from .. import resolve_device
 from ..core import adjacency, tags
-from ..core.mesh import Mesh, compact
+from ..core.mesh import Mesh, compact, compact_aux
 from ..ops import analysis, interp, quality
 from ..parallel import partition as partition_mod
 from ..parallel.distribute import (
@@ -53,6 +57,8 @@ from .adapt import (
     MemoryBudgetError,
     _check_budget,
     _sweep_body,
+    pad_changed,
+    stacked_frontier,
     adapt as adapt_single,
     check_supported,
     default_mem_budget_mb,
@@ -153,19 +159,31 @@ def ensure_capacity_stacked(shards: List[Mesh],
 # the remesh phase on every shard
 # ---------------------------------------------------------------------------
 
-def _vsweep(shards: List[Mesh], ecap: int, opts: AdaptOptions, hausd):
+def _vsweep(shards: List[Mesh], ecap: int, opts: AdaptOptions, hausd,
+            frontier=None):
     """One sweep of every shard, with the split-dominant skip off (a
     per-shard skip would make the shards' programs differ). Returns
-    (shards, per-shard SweepStats list)."""
-    out, stats = [], []
-    for m in shards:
-        m, s = _sweep_body(m, ecap, noinsert=opts.noinsert,
-                           noswap=opts.noswap, nomove=opts.nomove,
-                           nosurf=opts.nosurf, hausd=hausd,
-                           phase_skip=False)
+    (shards, per-shard SweepStats list), and with `frontier` (a list of
+    per-shard Frontiers with shared `dirty`/`adja_ok`) the successor
+    frontiers, whose `dirty` is the largest and `adja_ok` the AND over
+    the shards: a stricter level is exact for every shard."""
+    kw = dict(noinsert=opts.noinsert, noswap=opts.noswap, nomove=opts.nomove,
+              nosurf=opts.nosurf, hausd=hausd, phase_skip=False)
+    out, stats, frs = [], [], []
+    for i, m in enumerate(shards):
+        if frontier is None:
+            m, s = _sweep_body(m, ecap, **kw)
+        else:
+            m, s, f = _sweep_body(m, ecap, frontier=frontier[i], **kw)
+            frs.append(f)
         out.append(m)
         stats.append(s)
-    return out, stats
+    if frontier is None:
+        return out, stats
+    dirty = max(f.dirty for f in frs)
+    adja_ok = all(f.adja_ok for f in frs)
+    return out, stats, [f._replace(dirty=dirty, adja_ok=adja_ok)
+                        for f in frs]
 
 
 def _rec_from_stats(shards: List[Mesh], stats) -> dict:
@@ -199,19 +217,87 @@ def _rec_from_stats(shards: List[Mesh], stats) -> dict:
     )
 
 
+def _drained_rec(shards: List[Mesh], history: List[dict]) -> dict:
+    """Zero-op record of a skipped (drained-frontier) phase, with the
+    keys of a real record: the unique-edge count and unit-band share
+    carry forward from the last measured sweep."""
+    last_nu = next((int(r["n_unique"]) for r in reversed(history)
+                    if r.get("n_unique")), 0)
+    last_band = next((float(r["in_band"]) for r in reversed(history)
+                      if "in_band" in r), None)
+    cnt = torch.stack([torch.stack([m.tmask.sum(), m.vmask.sum()])
+                       for m in shards]).tolist()
+    shard_ne = np.asarray([c[0] for c in cnt], np.int64)
+    rec = dict(
+        nsplit=0, ncollapse=0, nswap=0, nmoved=0,
+        ne=int(shard_ne.sum()), np=int(sum(c[1] for c in cnt)),
+        n_unique=last_nu, capped=False, n_active=0,
+        active_fraction=0.0, shard_active=[0.0] * len(shards),
+        shard_ne=[int(x) for x in shard_ne.tolist()],
+        imbalance=round(float(shard_ne.max())
+                        / max(float(shard_ne.mean()), 1.0), 4),
+        skipped=True,
+    )
+    if last_band is not None:
+        rec["in_band"] = last_band
+    return rec
+
+
+def _frontier_stale(fr, shards: List[Mesh], ecap: int) -> bool:
+    """Capacity growth or an edge-cap event changed the table shapes:
+    the carried frontier is re-seeded (its changed masks survive, padded;
+    the tables restart stale)."""
+    f, m = fr[0], shards[0]
+    return (f.changed.shape[0] != m.pcap or f.tables[0].shape[0] != ecap
+            or f.tables[2].shape[0] != m.tcap)
+
+
 def remesh_phase(shards: List[Mesh], opts: AdaptOptions,
                  emult: List[float], history: List[dict], it: int,
-                 hausd) -> List[Mesh]:
+                 hausd, fr0=None):
     """Operator sweeps to convergence on every shard: the shared
-    `run_sweep_loop` engine with records summed over the shards."""
+    `run_sweep_loop` engine with records summed over the shards.
+
+    With `opts.frontier`, `fr0` is the iteration's carried active set
+    (per-shard [PC] bool masks; None = all active, the full-table
+    sweep): the first sweep gates on its one-ring closure, and a drained
+    carry skips the sweeps outright (an empty-frontier sweep is the
+    identity). Returns (shards, changed masks | None)."""
+    use_fr = bool(opts.frontier)
+    if use_fr and fr0 is not None:
+        if int(torch.stack([c.sum() for c in fr0]).sum()) == 0:
+            rec = _drained_rec(shards, history)
+            rec.update(iter=it, sweep=0)
+            history.append(rec)
+            return shards, fr0
+    fr_cell: list = [None]
+
     def sweep_fn(s, ecap):
-        s, stats = _vsweep(s, ecap, opts, hausd)
+        if not use_fr:
+            s, stats = _vsweep(s, ecap, opts, hausd)
+            return s, _rec_from_stats(s, stats)
+        fr = fr_cell[0]
+        if fr is None or _frontier_stale(fr, s, ecap):
+            chg = ([f.changed for f in fr] if fr is not None else fr0)
+            fr = stacked_frontier(
+                s, ecap, None if chg is None else pad_changed(chg, s[0].pcap))
+        s, stats, fr_cell[0] = _vsweep(s, ecap, opts, hausd, frontier=fr)
         return s, _rec_from_stats(s, stats)
 
-    return run_sweep_loop(
+    shards = run_sweep_loop(
         shards, opts, emult, history, it,
         ensure_fn=lambda s: ensure_capacity_stacked(s, opts),
         tcap_fn=lambda s: s[0].tcap, sweep_fn=sweep_fn)
+    if not use_fr:
+        return shards, None
+    if fr_cell[0] is not None:
+        chg = [f.changed for f in fr_cell[0]]
+    elif fr0 is not None:
+        chg = fr0
+    else:
+        chg = [torch.ones(m.pcap, dtype=torch.bool, device=m.device)
+               for m in shards]
+    return shards, pad_changed(chg, shards[0].pcap)
 
 
 def interp_phase(shards: List[Mesh], old: List[Mesh],
@@ -305,16 +391,20 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
     RuntimeError, FloatingPointError, OverflowError) rolls back to the
     last good state and ends the run with LOWFAILURE. A kernel that
     fails to build or launch raises `KernelError`, which is none of
-    these and ends the run. Returns (shards, status)."""
+    these and ends the run. With `opts.frontier` the changed masks are
+    carried from one iteration to the next (None = all active at the
+    start and after a rollback, whose shards predate the carry).
+    Returns (shards, status)."""
     emult = [1.6]
     status = tags.ReturnStatus.SUCCESS
     # every op returns new tensors, so the shards of the last good
     # iteration stay as they were
     last_good = shards
+    fr_carry = None
     for it in range(opts.niter):
         try:
-            shards = _one_iteration(shards, opts, hausd, history, it,
-                                    emult)
+            shards, fr_carry = _one_iteration(shards, opts, hausd, history,
+                                              it, emult, fr_carry)
             validate(shards, opts, it)
         except NotImplementedError:
             raise
@@ -323,6 +413,7 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
             history.append(dict(iter=it, failure=str(e),
                                 error=type(e).__name__))
             shards = last_good
+            fr_carry = None
             status = tags.ReturnStatus.LOWFAILURE
             break
         last_good = shards
@@ -330,15 +421,22 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
 
 
 def _one_iteration(shards: List[Mesh], opts: DistOptions, hausd,
-                   history: List[dict], it: int, emult) -> List[Mesh]:
+                   history: List[dict], it: int, emult, fr=None):
     """Remesh every shard with frozen interfaces, then interpolate the
-    metric from the pre-remesh snapshot."""
+    metric from the pre-remesh snapshot. The frontier carry `fr` goes
+    through the compaction with the shards. Returns (shards, carry)."""
     _refuse_balancing(opts)
     # the snapshot shares tensors with the shards: the remesh returns
     # new ones and leaves its inputs as they were
     old = [adjacency.build_adjacency(m) for m in shards]
-    shards = remesh_phase(shards, opts, emult, history, it, hausd)
-    return interp_phase([compact(m) for m in shards], old, opts)
+    shards, fr = remesh_phase(shards, opts, emult, history, it, hausd,
+                              fr0=fr)
+    if fr is None:
+        shards = [compact(m) for m in shards]
+    else:
+        packed = [compact_aux(m, c) for m, c in zip(shards, fr)]
+        shards, fr = [p[0] for p in packed], [p[1] for p in packed]
+    return interp_phase(shards, old, opts), fr
 
 
 def merge_adapted(stacked: Mesh, comm: ShardComm) -> Mesh:

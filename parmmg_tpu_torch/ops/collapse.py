@@ -7,6 +7,10 @@ and retargets its ball onto dst; the arena is the union of tets touching
 either endpoint. Validity: positive volumes and bounded quality loss
 (the `collapse_cavity` kernel scores the retargeted ball), surface
 fidelity for boundary collapses, and a duplicate-tet link check.
+
+Frontier mode: with an `active` vertex mask only short edges near the
+frontier are candidates, and with none the sweep launches nothing (a
+host decision where the JAX package takes a `lax.cond`).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ class CollapseStats(NamedTuple):
     nrej_topo: torch.Tensor
     nrej_surf: torch.Tensor
     nsurf: torch.Tensor
+    changed_v: torch.Tensor  # [PC] bool: vertices whose 1-ring changed
 
 
 def _i32(t):
@@ -61,7 +66,7 @@ def _retarget(conn, mask, wv, src, dst):
 
 def collapse_short_edges(mesh: Mesh, edges, emask, t2e,
                          lshrt: float = float(metric_mod.LSHRT),
-                         hausd=0.01, nosurf: bool = False):
+                         hausd=0.01, nosurf: bool = False, active=None):
     """One collapse sweep on a compacted mesh; returns (mesh,
     CollapseStats). Adjacency is left stale."""
     ecap = edges.shape[0]
@@ -73,6 +78,16 @@ def collapse_short_edges(mesh: Mesh, edges, emask, t2e,
     l = metric_mod.edge_length(take(mesh.vert, a), take(mesh.vert, b),
                                take(mesh.met, a), take(mesh.met, b))
     pre = emask & (l < lshrt)
+    if active is not None:
+        # an inactive short edge met the same ball last sweep and did
+        # not act
+        pre = pre & (take(active, a) | take(active, b))
+        if not bool(pre.any()):
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return mesh, CollapseStats(
+                ncollapse=zero, ncand=zero, nrej_geom=zero, nrej_topo=zero,
+                nrej_surf=zero, nsurf=zero,
+                changed_v=torch.zeros(pcap, dtype=torch.bool, device=dev))
 
     # --- vertex classes ---------------------------------------------------
     vt = mesh.vtag
@@ -261,6 +276,12 @@ def collapse_short_edges(mesh: Mesh, edges, emask, t2e,
 
     ncollapse = accept.to(torch.int32).sum()
     nsurf = (accept & (s_src < 3)).to(torch.int32).sum()
+    # frontier: every vertex of a retargeted or deleted tet (deleted
+    # shells still name their vertices, src and the ring included)
+    chg = scatter(torch.zeros(pcap, dtype=torch.bool, device=dev),
+                  torch.where((app_t | del_t)[:, None], new_tet,
+                              pcap).reshape(-1), True)
+    chg = scatter(chg, torch.where(accept, dst, pcap), True)
     out = mesh.replace(
         tet=tet_out.to(torch.int32), tmask=tmask_out, vmask=vmask_out,
         tria=tria_out.to(torch.int32), trmask=trmask_out,
@@ -269,4 +290,5 @@ def collapse_short_edges(mesh: Mesh, edges, emask, t2e,
     return out, CollapseStats(
         ncollapse=ncollapse, ncand=ncand, nrej_geom=nrej_geom,
         nrej_topo=nrej_topo, nrej_surf=nrej_surf, nsurf=nsurf,
+        changed_v=chg,
     )

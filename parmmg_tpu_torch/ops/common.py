@@ -179,7 +179,12 @@ def _bits_for(bound) -> int:
 
 def _pack_cols(cols, bound):
     """int64 sort keys (most significant first) from nonnegative int
-    columns: adjacent columns share one key where their bit widths fit."""
+    columns: adjacent columns share one key where their bit widths fit.
+
+    This is the port's one packing rule, in place of the JAX package's
+    `pack_ok`/`_pack_pairs` (uint32 pairs for ids below 65534): a
+    packed key orders rows exactly as the columns do, so both rules give
+    the same stable sort order and only the key width differs."""
     bits = _bits_for(bound)
     per = max(1, 62 // bits)
     keys = []
@@ -357,6 +362,32 @@ def rank_winners(prio, cand, scatter_arena, gather_arena):
     r = torch.where(cand, rank.to(torch.float32), -math.inf)
     best = gather_arena(scatter_arena(r))
     return cand & (r >= best) & torch.isfinite(r)
+
+
+# ---------------------------------------------------------------------------
+# frontier (active-set) helpers
+#
+# Every sweep records the vertices whose geometry or 1-ring topology it
+# changed (`changed_v` in the operators' stats); the next sweep's
+# candidates are gated on the one-ring closure of that set. The all-true
+# mask reproduces the full-table sweep bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def one_ring_closure(tet, tmask, changed_v):
+    """[PC] bool: vertices sharing a valid tet with a changed vertex,
+    the changed vertices included."""
+    pcap = changed_v.shape[0]
+    t_hot = torch.any(take(changed_v, tet), dim=1) & tmask
+    idx = torch.where(t_hot[:, None], tet, pcap).reshape(-1)
+    av = scatter(torch.zeros(pcap, dtype=torch.bool,
+                             device=changed_v.device), idx, True)
+    return av | changed_v
+
+
+def edge_active(active_v, a, b, emask):
+    """[E] bool: unique edge with an endpoint in the active closure."""
+    return emask & (take(active_v, a) | take(active_v, b))
 
 
 def topk_candidates(cand, sortkey, K: int):

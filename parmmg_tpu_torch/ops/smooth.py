@@ -7,6 +7,11 @@ surface vertices tangentially toward their surface neighbours, feature
 vertices along their feature edges; tets that would invert or degrade
 (scored through the `quality_vol` kernel) and trias that would fold
 freeze their vertices, with a global revert as the last safety net.
+
+Frontier mode: with an `active` vertex mask only active vertices are
+relaxed (an inactive vertex would repeat its last sub-threshold step),
+and with no active movable vertex the sweep launches nothing (a host
+decision where the JAX package takes a `lax.cond`).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ MOVE_TOL = 5e-3
 class SmoothStats(NamedTuple):
     nmoved: torch.Tensor
     nfrozen: torch.Tensor
+    changed_v: torch.Tensor  # [PC] bool: moved beyond MOVE_TOL
 
 
 def _local_h(met):
@@ -45,7 +51,7 @@ def _local_h(met):
 
 def smooth_vertices(mesh: Mesh, edges, emask, relax: float = 0.5,
                     rounds: int = 4, qfactor: float = 0.5,
-                    nosurf: bool = False):
+                    nosurf: bool = False, active=None):
     """One smoothing sweep; returns (mesh, SmoothStats)."""
     pcap = mesh.pcap
     dev = mesh.device
@@ -63,7 +69,15 @@ def smooth_vertices(mesh: Mesh, edges, emask, relax: float = 0.5,
     if nosurf:
         surf_v = torch.zeros_like(surf_v)
         ridge_v = torch.zeros_like(ridge_v)
+    if active is not None:
+        free_i, surf_v, ridge_v = (free_i & active, surf_v & active,
+                                   ridge_v & active)
     movable = free_i | surf_v | ridge_v
+    if active is not None and not bool(movable.any()):
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return mesh, SmoothStats(
+            nmoved=zero, nfrozen=zero,
+            changed_v=torch.zeros(pcap, dtype=torch.bool, device=dev))
 
     # --- edge classes -----------------------------------------------------
     a, b = edges[:, 0], edges[:, 1]
@@ -90,7 +104,8 @@ def smooth_vertices(mesh: Mesh, edges, emask, relax: float = 0.5,
     cent = acc / torch.clamp(cnt, min=1.0)[:, None]
 
     d = cent - vert0
-    vn = vertex_normals(mesh)
+    # frontier mode reads normals only at the active surface vertices
+    vn = vertex_normals(mesh, need=surf_v if active is not None else None)
     d_surf = d - _dot(d, vn)[:, None] * vn
     has_cnt = (cnt > 0)[:, None]
     disp = torch.where((free_i | ridge_v)[:, None] & has_cnt, d, 0.0)
@@ -139,7 +154,11 @@ def smooth_vertices(mesh: Mesh, edges, emask, relax: float = 0.5,
     pos = torch.where(still_bad, vert0, pos)
 
     moved = movable & ~frozen & ~still_bad & ~small & (cnt > 0)
+    # frontier: only vertices that moved beyond MOVE_TOL re-enter the
+    # next sweep's active set, so converging relaxation drains it
+    chg = _norm(pos - vert0) > MOVE_TOL * h_loc
     return mesh.replace(vert=pos), SmoothStats(
         nmoved=moved.to(torch.int32).sum(),
         nfrozen=(movable & frozen).to(torch.int32).sum(),
+        changed_v=chg & mesh.vmask,
     )

@@ -7,6 +7,12 @@ incident tet/tria/feature edge is split 1->2 in one vectorized update.
 Plain surface edges get the curvature-corrected midpoint unless an
 incident child would fall below the positivity floor — checked by the
 `split_midpoint` kernel.
+
+Frontier mode: with an `active` vertex mask (the one-ring closure of the
+previous sweep's changes) only long edges near the frontier are
+candidates, and when there is none the sweep launches nothing (a host
+decision where the JAX package takes a `lax.cond`). `active=None` is the
+full-table sweep.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ class SplitStats(NamedTuple):
     nsplit: torch.Tensor    # edges split this sweep
     ncand: torch.Tensor     # long-edge candidates before selection
     capped: torch.Tensor    # bool: capacity limited the sweep
+    changed_v: torch.Tensor  # [PC] bool: vertices whose 1-ring changed
 
 
 # tag bits a new mid-edge vertex inherits from a surface/feature edge
@@ -43,7 +50,7 @@ def _i32(t):
 
 def split_long_edges(mesh: Mesh, edges, emask, t2e,
                      llong: float = float(metric_mod.LLONG),
-                     nosurf: bool = False):
+                     nosurf: bool = False, active=None):
     """One split sweep on a compacted mesh; returns (mesh, SplitStats).
     Adjacency is left stale."""
     ecap = edges.shape[0]
@@ -55,6 +62,15 @@ def split_long_edges(mesh: Mesh, edges, emask, t2e,
     pa, pb = take(mesh.vert, a), take(mesh.vert, b)
     l = metric_mod.edge_length(pa, pb, take(mesh.met, a), take(mesh.met, b))
     pre = emask & (l > llong)
+    if active is not None:
+        # an inactive long edge met the same arena last sweep and lost
+        pre = pre & (take(active, a) | take(active, b))
+        if not bool(pre.any()):
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return mesh, SplitStats(
+                nsplit=zero, ncand=zero,
+                capped=torch.zeros((), dtype=torch.bool, device=dev),
+                changed_v=torch.zeros(pcap, dtype=torch.bool, device=dev))
 
     # one sort-merge maps every tria edge to its unique-edge slot
     edge_keys = torch.where(emask[:, None], edges, -1)
@@ -128,7 +144,14 @@ def split_long_edges(mesh: Mesh, edges, emask, t2e,
     # --- new vertex position --------------------------------------------
     mid = 0.5 * (pa + pb)
     if not nosurf:
-        vn = vertex_normals(mesh)
+        need_v = None
+        if active is not None:
+            # normals are read only at candidate endpoints, whose rows
+            # come out exact under `need`
+            need_v = torch.zeros(pcap, dtype=torch.bool, device=dev)
+            need_v = scatter(need_v, torch.where(pre, a, pcap), True)
+            need_v = scatter(need_v, torch.where(pre, b, pcap), True)
+        vn = vertex_normals(mesh, need=need_v)
         surf_real = mark_edges(surf_tria_mask(mesh) & mesh.trmask)
         na_, nb_ = take(vn, a), take(vn, b)
         has_n = (_dot(na_, na_) > 0.5) & (_dot(nb_, nb_) > 0.5)
@@ -224,5 +247,10 @@ def split_long_edges(mesh: Mesh, edges, emask, t2e,
         edtag=scatter(mesh.edtag, tgt_e, feat_tag),
         edmask=scatter(mesh.edmask, tgt_e, ehas),
     )
+    # frontier: the new midpoints plus every vertex of a split tet
+    chg = scatter(torch.zeros(pcap, dtype=torch.bool, device=dev), tgt_v,
+                  True)
+    chg = scatter(chg, torch.where(has[:, None], mesh.tet,
+                                   pcap).reshape(-1), True)
     return mesh.replace(**out), SplitStats(nsplit=nsplit, ncand=ncand,
-                                           capped=capped)
+                                           capped=capped, changed_v=chg)

@@ -6,6 +6,11 @@ swap is applied only when the worst quality of the new configuration
 beats the old one by GAIN; candidates are compacted worst-first, scored
 through the `quality_vol` kernel, and selected as an independent set
 with the affected tets as arena.
+
+Frontier mode: with an `active` vertex mask only edges/faces near the
+frontier pass the cheap prefilter, and with none the sweep launches
+nothing past it (a host decision where the JAX package takes a
+`lax.cond`).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ QTHRESH = 0.5        # only try to improve tets worse than this
 class SwapStats(NamedTuple):
     nswap32: torch.Tensor
     nswap23: torch.Tensor
+    changed_v: torch.Tensor  # [PC] bool: vertices whose 1-ring changed
 
 
 def _i32(t):
@@ -43,7 +49,24 @@ def _oriented(t4, vert):
     return torch.stack([v0, v1, t4[:, 2], t4[:, 3]], dim=1)
 
 
-def swap_32(mesh: Mesh, edges, emask, t2e):
+def _mark_changed(pcap, win, cols):
+    """[PC] bool from the vertex columns of winning candidates."""
+    chg = torch.zeros(pcap, dtype=torch.bool, device=win.device)
+    for c in cols:
+        chg = scatter(chg, torch.where(win, c, pcap), True)
+    return chg
+
+
+def _none(mesh: Mesh):
+    """The skipped sweep: the mesh unchanged, no swap."""
+    zero = torch.zeros((), dtype=torch.int64, device=mesh.device)
+    return mesh, SwapStats(nswap32=zero, nswap23=zero,
+                           changed_v=torch.zeros(mesh.pcap,
+                                                 dtype=torch.bool,
+                                                 device=mesh.device))
+
+
+def swap_32(mesh: Mesh, edges, emask, t2e, active=None):
     """3-2 edge swap sweep on a compacted mesh; adjacency left stale."""
     ecap = edges.shape[0]
     tcap, pcap = mesh.tcap, mesh.pcap
@@ -86,6 +109,12 @@ def swap_32(mesh: Mesh, edges, emask, t2e):
         & ((take(mesh.vtag, a) & tags.PARBDY) == 0)
         & ((take(mesh.vtag, b) & tags.PARBDY) == 0)
     )
+    if active is not None:
+        # a shell's verdict changes only when a vertex of one of its
+        # tets changed, and then the closure marks both endpoints
+        cand_pre = cand_pre & (take(active, a) | take(active, b))
+        if not bool(cand_pre.any()):
+            return _none(mesh)
     K = min(ecap, max(256, ecap // 8))
     pick, valid = common.topk_candidates(cand_pre, shell_min_q, K)
     K = pick.shape[0]
@@ -148,10 +177,12 @@ def swap_32(mesh: Mesh, edges, emask, t2e):
     tet_out, tmask_out = apply(win2)
     out = mesh.replace(tet=tet_out, tmask=tmask_out)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    return out, SwapStats(nswap32=win2.to(torch.int32).sum(), nswap23=zero)
+    return out, SwapStats(nswap32=win2.to(torch.int32).sum(), nswap23=zero,
+                          changed_v=_mark_changed(pcap, win2,
+                                                  (uk, vk, wk, ak, bk)))
 
 
-def swap_23(mesh: Mesh, edges, emask):
+def swap_23(mesh: Mesh, edges, emask, active=None):
     """2-3 face swap sweep. Requires fresh adjacency; leaves it stale."""
     tcap, pcap = mesh.tcap, mesh.pcap
     dev = mesh.device
@@ -167,6 +198,13 @@ def swap_23(mesh: Mesh, edges, emask):
         (nb_full >= 0) & tmask[t2_full] & tmask[t_id_full]
         & (t_id_full < t2_full) & (qmin_pair < QTHRESH)
     )
+    if active is not None:
+        # a face pair's verdict changes only when a vertex of either
+        # tet's 1-ring changed
+        tet_act = torch.any(take(active, tet), dim=1)
+        pre = pre & (tet_act[t_id_full] | tet_act[t2_full])
+        if not bool(pre.any()):
+            return _none(mesh)
     K = max(256, tcap // 2)
     sortkey = torch.where(pre, qmin_pair, math.inf)
     pick, valid = common.topk_candidates(pre, sortkey, K)
@@ -255,4 +293,6 @@ def swap_23(mesh: Mesh, edges, emask):
     out = mesh.replace(tet=tet_out.to(torch.int32), tref=tref_out,
                        tmask=tmask_out)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    return out, SwapStats(nswap32=zero, nswap23=win2.to(torch.int32).sum())
+    return out, SwapStats(nswap32=zero, nswap23=win2.to(torch.int32).sum(),
+                          changed_v=_mark_changed(pcap, win2,
+                                                  (x, y, z, d1, d2)))

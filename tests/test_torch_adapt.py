@@ -4,7 +4,8 @@ rules of the port (no JAX in it, no silent CPU fallback, unported options
 refused).
 
 The adaptation case is tests/test_m1_remesh.py:244 with full-table sweeps
-(unit cube n=4, hsiz 0.18, niter 1, max_sweeps 6, no gradation) at f64:
+(unit cube n=4, hsiz 0.18, niter 1, max_sweeps 6, no gradation; the
+frontier sweeps are held in tests/test_torch_frontier.py) at f64:
 the per-sweep integer history, final counts and histogram counts must be
 equal, qmin and qavg within 5e-11 relative (the sums run in another
 order), the final mesh equal slot for slot (coordinates within 5e-11). The JAX
@@ -71,7 +72,7 @@ def runs(tmp_path_factory):
     try:
         torch_run = t_adapt.adapt(
             t_gen.unit_cube_mesh(4, dtype=torch.float64, device="cpu"),
-            t_adapt.AdaptOptions(**CASE), device="cpu")
+            t_adapt.AdaptOptions(frontier=False, **CASE), device="cpu")
     finally:
         torch.use_deterministic_algorithms(prev)
     return jax_run(), torch_run
@@ -114,29 +115,52 @@ def test_adaptation_equals_live_jax(runs):
     assert conformity.check_mesh(tm).ok
 
 
-def test_cli_round_trip(tmp_path):
-    """The CLI loads, adapts with its defaults and writes mesh + metric:
-    the files reload to the mesh `adapt()` gives on the same input and
-    options, conforming."""
+def test_cli_round_trip(tmp_path, monkeypatch):
+    """The CLI loads, adapts with its defaults (frontier sweeps) and with
+    `-nofrontier` (full-table sweeps), and writes mesh + metric: each
+    output reloads to the mesh `adapt()` gives on the same input and
+    options, conforming, and the two outputs differ where `adapt()`'s
+    do (on this small case neither does)."""
     raw = t_gen.unit_cube(3)
     src = str(tmp_path / "cube3.mesh")
     t_medit.save_mesh(t_mesh.Mesh.from_numpy(
         raw["verts"], raw["tets"], trias=raw["trias"], trrefs=raw["trrefs"],
         device="cpu"), src)
-    out = str(tmp_path / "o.mesh")
-    assert t_cli.main([src, "-hsiz", "0.3", "-niter", "1", "-v", "0",
-                       "-nofrontier", "-out", out], device="cpu") == 0
-    got = t_medit.load_mesh(out, t_medit.met_filename(out), device="cpu")
-    ref, _ = t_adapt.adapt(t_medit.load_mesh(src, device="cpu"),
-                           t_adapt.AdaptOptions(hsiz=0.3, niter=1),
-                           device="cpu")
-    assert conformity.check_mesh(got).ok
-    a, b = got.to_numpy(), ref.to_numpy()
-    assert len(a["tets"]) > 162
-    for k in ("tets", "trias", "trrefs", "edges"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    np.testing.assert_array_equal(a["verts"], b["verts"])
-    np.testing.assert_allclose(a["met"], 0.3, rtol=1e-7)
+    seen = []
+    real_adapt = t_adapt.adapt
+
+    def spy(mesh, opts, **kw):
+        seen.append(opts.frontier)
+        return real_adapt(mesh, opts, **kw)
+
+    got, ref = {}, {}
+    for frontier, extra in ((True, []), (False, ["-nofrontier"])):
+        out = str(tmp_path / f"o{int(frontier)}.mesh")
+        with monkeypatch.context() as mp:
+            mp.setattr(t_adapt, "adapt", spy)
+            assert t_cli.main([src, "-hsiz", "0.3", "-niter", "2", "-v",
+                               "0", "-out", out] + extra, device="cpu") == 0
+        assert seen.pop() is frontier
+        m = t_medit.load_mesh(out, t_medit.met_filename(out), device="cpu")
+        assert conformity.check_mesh(m).ok
+        got[frontier] = m.to_numpy()
+        ref[frontier] = t_adapt.adapt(
+            t_medit.load_mesh(src, device="cpu"),
+            t_adapt.AdaptOptions(hsiz=0.3, niter=2, frontier=frontier),
+            device="cpu")[0].to_numpy()
+        a, b = got[frontier], ref[frontier]
+        assert len(a["tets"]) > 162
+        for k in ("tets", "trias", "trrefs", "edges"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_array_equal(a["verts"], b["verts"])
+        np.testing.assert_allclose(a["met"], 0.3, rtol=1e-7)
+
+    def same(d):
+        return [d[True][k].shape == d[False][k].shape
+                and np.array_equal(d[True][k], d[False][k])
+                for k in ("tets", "verts")]
+
+    assert same(got) == same(ref)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +202,7 @@ def _assert_no_device_and_no_cuda_raises(monkeypatch, tmp_path):
 
 
 UNPORTED_OPTIONS = [
-    ("frontier", True), ("checkpoint_dir", "ck"),
+    ("checkpoint_dir", "ck"),
     ("checkpoint_store", "mem://b"), ("faults", "it0:remesh:nan"),
     ("govern", True), ("kernels", "off"), ("validate", "full"),
 ]

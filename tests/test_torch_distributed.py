@@ -12,15 +12,16 @@ numpy arrays.
   tables), `assign_global_ids`, `rebuild_comm` and `merge_shards`, on the
   analysed unit cube n=5 with a graded metric: all equal.
 - The slice as a whole: `adapt_distributed(DistOptions(nparts=4,
-  nobalancing=True, frontier=False, niter=2, min_shard_elts=16,
-  max_sweeps=6))` on the unit cube n=5, once with `hsiz=0.18` and once
-  with a graded iso metric, against the live JAX run: the per-sweep
-  integer history (the keys of tests/test_m1_remesh.py:258 and more,
-  with `shard_ne`) and the histogram counts equal; the stacked and the
-  merged mesh equal, vertices slot for slot with coordinates and metric
-  within `_rtol` (5e-11), the live tets as a set (the reference's jit
-  and op-by-op runs order them differently, see `_assert_leaves`);
-  qmin/qavg within 5e-11 relative.
+  nobalancing=True, niter=2, min_shard_elts=16, max_sweeps=6))` on the
+  unit cube n=5, once with `hsiz=0.18` and full-table sweeps and once
+  with a graded iso metric and frontier sweeps (the per-shard frontier
+  carried across sweeps and iterations), against the live JAX run: the
+  per-sweep integer history (the keys of tests/test_m1_remesh.py:258
+  and more, with `shard_ne`) and the histogram counts equal; the stacked
+  and the merged mesh equal, vertices slot for slot with coordinates and
+  metric within `_rtol` (5e-11), the live tets as a set (the
+  reference's jit and op-by-op runs order them differently, see
+  `_assert_leaves`); qmin/qavg within 5e-11 relative.
 - The snapshot the interpolation reads is not touched by the remesh, and
   `-nparts 4 -nobalance` runs through the CLI.
 """
@@ -54,6 +55,17 @@ HISTO_INT = ("ne", "counts", "nbad", "ninverted", "worst_elt",
              "worst_shard")
 COMM = ("comm_idx", "counts", "l2g", "owner")
 CUMSUM_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4097, 70001)
+
+
+def _case_options(case: str) -> dict:
+    """DistOptions of a case: `hsiz` full-table, `graded` with frontier
+    sweeps."""
+    kw = dict(CASE)
+    if case == "hsiz":
+        kw["hsiz"] = 0.18
+    else:
+        kw["frontier"] = True
+    return kw
 
 
 def _graded(v):
@@ -126,10 +138,8 @@ def _jax_adapt(out, case):
     from parmmg_tpu.utils import gen
 
     mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
-    kw = dict(CASE)
-    if case == "hsiz":
-        kw["hsiz"] = 0.18
-    else:
+    kw = _case_options(case)
+    if case == "graded":
         mesh = mesh.replace(met=jnp.asarray(_graded(np.asarray(mesh.vert))),
                             met_set=True)
     st, comm, info = adapt_distributed(mesh, DistOptions(**kw))
@@ -236,10 +246,8 @@ def torch_runs():
         for case in ("hsiz", "graded"):
             mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64,
                                         device="cpu")
-            kw = dict(CASE)
-            if case == "hsiz":
-                kw["hsiz"] = 0.18
-            else:
+            kw = _case_options(case)
+            if case == "graded":
                 mesh = mesh.replace(met=_graded(mesh.vert), met_set=True)
             runs[case] = t_dist.adapt_distributed(
                 mesh, t_dist.DistOptions(**kw), device="cpu")
@@ -346,7 +354,7 @@ def _check_snapshot_untouched():
     old = [t_adj.build_adjacency(m) for m in shards]
     before = [o.clone() for o in old]
     hist = []
-    new = t_dist.remesh_phase(shards, opts, [1.6], hist, 0, 0.01)
+    new, _ = t_dist.remesh_phase(shards, opts, [1.6], hist, 0, 0.01)
     assert sum(h["nsplit"] for h in hist) > 0
     t_dist.interp_phase([t_dist.compact(m) for m in new], old, opts)
     for o, b in zip(old, before):
