@@ -29,23 +29,28 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    which must give the full-table mesh of earlier slices bit for bit
    (its element count, qmin and unit-band share);
 2c. distributed path: the same cube with the graded iso size
-   h = 0.025 + 0.05 x written as a .sol, through the CLI with `-nparts 4
-   -nobalance` (f32, niter 3, hgrad 1.3, -ar 45; frontier sweeps),
-   counters set to 0 just before and read just after: interp_bary must
-   launch at least niter times and the other kernels at least once; an
-   iteration may be rolled back only on the phase-boundary validation;
-   the merged output must be conforming with qmin > 0 and an element
-   count in a window around the JAX package's count for the same command
-   on a CPU; launches printed as in 2; then the same with `-nofrontier`,
-   which must give the full-table element count of earlier slices; at
-   the end of the script, `adapt_distributed()` again under
-   torch.profiler, which must give the CLI's frontier mesh bit for bit;
+   h = 0.025 + 0.05 x written as a .sol, through the CLI with `-nparts 4`
+   (f32, niter 3, hgrad 1.3, -ar 45; frontier sweeps; balancing between
+   iterations, the default), counters set to 0 just before and read just
+   after: interp_bary must launch at least niter times and the other
+   kernels at least once; an iteration may be rolled back only on the
+   phase-boundary validation; some iteration must move cells between
+   shards and the last one take the graph cut (each rebalancing printed
+   with its trigger, cells moved, imbalance before and after and wall
+   time); the merged output must be conforming with qmin > 0 and an
+   element count in a window around the JAX package's count for the same
+   command on a CPU; launches printed as in 2; then the same with
+   `-nobalance` (frozen interfaces), with frontier and with full-table
+   sweeps, which must give the element count of earlier slices; at the
+   end of the script, `adapt_distributed()` with the balanced options
+   again under torch.profiler, which must give the balanced CLI's mesh
+   bit for bit;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of its own last launch on each path it runs on (tables of P
    rows, a stream of N rows; the three sweep kernels at the centralized
-   shapes on the output of 2, and at the per-shard shapes of 2c on a
-   shard of the merged output of 2c; interp_bary over D shards of that
-   output) in f32 and f64, with iso (C=1)
+   shapes on the output of 2, and at the per-shard shapes of the
+   balanced run of 2c on a shard of its merged output; interp_bary over
+   D shards of that output) in f32 and f64, with iso (C=1)
    and seeded SPD tensor (C=6) metrics where the kernel takes them
    (split_midpoint's booleans and interp_bary's outputs bit for bit,
    the qualities within RTOL);
@@ -61,9 +66,11 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    an empty kernel on the same grid (`csrc/launch_floor.cu`), by the
    same estimator;
 4. small f64 adaptations on the card against the same runs on the CPU,
-   centralized and distributed, with frontier and with full-table sweeps:
-   the per-sweep histories must be equal; on the card, the device-to-host
-   reads inside the sweep loops are counted (torch's sync debug mode);
+   centralized and distributed (-nobalance), with frontier and with
+   full-table sweeps, and distributed balanced with frontier sweeps: the
+   per-sweep histories (and the rebalancings) must be equal; on the card,
+   the device-to-host reads inside the sweep loops are counted (torch's
+   sync debug mode);
 5. a `{"kernels": [...]}` line, the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -113,14 +120,15 @@ NE_RANGE = (157_000, 212_000)
 NOFRONTIER_MESH = (198_394, "0.209259", "0.874197")
 
 # the distributed path: graded iso size h = H0 + H1 x on the same cube,
-# NPARTS shards, the CLI's defaults (niter 3, hgrad 1.3, -ar 45, f32);
-# the window is about 15 % either side of the JAX package's CLI on a CPU
-# for this command (frontier sweeps: 148,506 tets; PERF.md); with
-# -nofrontier the port gives the full-table count of earlier slices
+# NPARTS shards, the CLI's defaults (niter 3, hgrad 1.3, -ar 45, f32,
+# frontier sweeps, balancing between iterations); the window is about
+# 15 % either side of the JAX package's CLI on a CPU for this command
+# (151,249 tets; PERF.md); with -nobalance, frontier or not, the port
+# gives the count of earlier slices
 GRADED_H = (0.025, 0.05)
 NPARTS, NITER = 4, 3
-DIST_NE_RANGE = (126_000, 171_000)
-DIST_NOFRONTIER_NE = 149_267
+DIST_NE_RANGE = (128_000, 174_000)
+DIST_NOBALANCE_NE = 149_267
 
 # float agreement band of tests/test_m18_kernels.py `_rtol`
 RTOL = {"float32": 5e-6, "float64": 5e-11}
@@ -693,10 +701,11 @@ def write_graded_cube(work: str, n: int):
 
 
 def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
-    """Phase 2c: the port's CLI with `-nparts NPARTS -nobalance` (and the
-    `extra` flags) on the graded cube, launch counters set to 0 just
-    before and read just after. The element count must fall in
-    `ne_range`, or equal `expect_ne`. Returns (merged output mesh on the
+    """Phase 2c: the port's CLI with `-nparts NPARTS` (and the `extra`
+    flags) on the graded cube, launch counters set to 0 just before and
+    read just after. The element count must fall in `ne_range`, or equal
+    `expect_ne`. Without -nobalance, some iteration must move cells and
+    the last one take the graph cut. Returns (merged output mesh on the
     card, launches, shapes)."""
     import torch
 
@@ -710,7 +719,7 @@ def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         cube, sol = write_graded_cube(work, n)
         out = os.path.join(work, "dist.mesh")
-        argv = [cube, "-sol", sol, "-nparts", str(NPARTS), "-nobalance",
+        argv = [cube, "-sol", sol, "-nparts", str(NPARTS),
                 "-niter", str(NITER), "-out", out, *extra]
         print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
               flush=True)
@@ -728,6 +737,7 @@ def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
         m = medit.load_mesh(out, medit.met_filename(out), device="cuda")
     check_rollbacks([ln for ln in buf.getvalue().splitlines()
                      if "rolled back" in ln], f"the {label} CLI")
+    check_rebalancing(buf.getvalue(), label, "-nobalance" not in extra)
     require(launches["interp_bary"] >= NITER,
             f"interp_bary launched {launches['interp_bary']} times on the "
             f"{label}, fewer than niter={NITER}")
@@ -743,8 +753,8 @@ def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
         require(ne_range[0] <= ne <= ne_range[1],
                 f"distributed ne {ne} outside {ne_range}")
     else:
-        require(ne == expect_ne, f"{label}: ne {ne}, not the full-table "
-                f"count {expect_ne}")
+        require(ne == expect_ne, f"{label}: ne {ne}, not the count "
+                f"{expect_ne} of earlier slices")
     in_band = quality.in_band_fraction(quality.mesh_length_stats(m))
     print(f"## {label}: wall {wall:.3f} s, phases " + ", ".join(
         f"{k} {v:.3f} s" for k, v in phase_times(buf.getvalue()).items()))
@@ -770,12 +780,35 @@ def check_rollbacks(lines, what: str) -> None:
               "phase-boundary validation")
 
 
+_REBAL = re.compile(r"## iteration (\d+) rebalanced \(([\w-]+)\): (\d+) "
+                    r"cells moved, imbalance (\S+) -> (\S+), (\S+) s")
+
+
+def check_rebalancing(text: str, label: str, balanced: bool) -> None:
+    """The CLI's `## iteration k rebalanced (trigger): ...` lines of a
+    run: printed one a line; with balancing some iteration must have
+    moved cells and the last one taken the graph cut, without none may
+    appear."""
+    rows = [m.groups() for m in _REBAL.finditer(text)]
+    for it, trig, cells, pre, post, wall in rows:
+        print(f"## {label}: balancing it {it}: {trig}, {cells} cells moved, "
+              f"imbalance {pre} -> {post}, block wall {wall} s")
+    if not balanced:
+        require(not rows, f"{label}: rebalanced with -nobalance")
+        return
+    require(any(int(r[2]) > 0 for r in rows),
+            f"{label}: no iteration moved cells between shards")
+    require(any(int(r[0]) == NITER - 1 and r[1] == "graph" for r in rows),
+            f"{label}: the last iteration did not take the graph cut")
+
+
 def profile_distributed_path(n: int, cli_out) -> None:
-    """Phase 2c, repeated: `adapt_distributed()` on the same input under
-    torch.profiler, which must give the CLI's merged mesh `cli_out` bit
-    for bit; device busy share and the kernels that take the time. Runs
-    last: a capture of this size leaves later captures in the process
-    without device records. Launch counters are not read here."""
+    """Phase 2c, repeated: `adapt_distributed()` with the balanced CLI's
+    options on the same input under torch.profiler, which must give the
+    CLI's merged mesh `cli_out` bit for bit; device busy share and the
+    kernels that take the time. Runs last: a capture of this size leaves
+    later captures in the process without device records. Launch
+    counters are not read here."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -785,7 +818,8 @@ def profile_distributed_path(n: int, cli_out) -> None:
 
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         mesh = medit.load_mesh(*write_graded_cube(work, n), device="cuda")
-    opts = DistOptions(nparts=NPARTS, nobalancing=True, niter=NITER)
+    # the CLI's -groups-ratio default is 2.0 (DistOptions' own is 2.5)
+    opts = DistOptions(nparts=NPARTS, niter=NITER, grps_ratio=2.0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -806,7 +840,10 @@ def profile_distributed_path(n: int, cli_out) -> None:
           f"{int(info['status'])}, {len(sweeps)} sweeps, last shard_ne "
           f"{sweeps[-1]['shard_ne']}"
           + "".join(f"; it {r['iter']}: {r['error']}: {r['failure']}"
-                    for r in fails))
+                    for r in fails)
+          + "".join(f"; it {b['it']} rebalanced ({b['trigger']}, "
+                    f"{b['cells']} cells, {b['wall_s']} s)"
+                    for b in info["balance"]))
     _device_profile(prof, wall, "adapt_distributed under torch.profiler")
 
 
@@ -1027,9 +1064,11 @@ def check_interp(m, shapes) -> dict:
 
 
 def _history(info):
-    keys = ("nsplit", "ncollapse", "nswap", "nmoved", "ne", "np")
-    return [tuple(r[k] for k in keys) + (tuple(r.get("shard_ne", ())),)
-            for r in info["history"]]
+    keys = ("nsplit", "ncollapse", "nswap", "nmoved", "ne", "np", "error")
+    return [tuple(r.get(k) for k in keys) + (tuple(r.get("shard_ne", ())),)
+            for r in info["history"]] + [
+        (b["it"], b["trigger"], b["cells"], b["imbalance_post"])
+        for b in info.get("balance", ())]
 
 
 @contextlib.contextmanager
@@ -1061,8 +1100,9 @@ def counting_reads(on: bool):
 def small_f64_runs() -> None:
     """Phase 4: unit cube n=4 at f64 on the card and on the CPU, through
     `adapt()` and through `adapt_distributed()` on 2 shards with
-    -nobalance, each with frontier and with full-table sweeps: the
-    per-sweep histories must be equal."""
+    -nobalance, each with frontier and with full-table sweeps, and
+    balanced with frontier sweeps: the per-sweep histories (with the
+    rebalancings) must be equal."""
     import torch
 
     from parmmg_tpu_torch.models.adapt import AdaptOptions, adapt
@@ -1080,6 +1120,9 @@ def small_f64_runs() -> None:
             adapt_distributed(m, DistOptions(
                 hsiz=0.18, niter=2, max_sweeps=6, hgrad=None, nparts=2,
                 nobalancing=True, min_shard_elts=16, frontier=fr), device=d)
+    runs["distributed balanced"] = lambda m, d: adapt_distributed(
+        m, DistOptions(hsiz=0.18, niter=2, max_sweeps=6, hgrad=None,
+                       nparts=2, min_shard_elts=16), device=d)
     threads = torch.get_num_threads()
     for label, run in runs.items():
         hist = {}
@@ -1130,14 +1173,17 @@ def main() -> int:
               expect=NOFRONTIER_MESH)
     print(f"## phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
     m_d, launches_d, shapes_d = distributed_path(CUBE_N, DIST_NE_RANGE)
-    distributed_path(CUBE_N, DIST_NE_RANGE, extra=("-nofrontier",),
-                     expect_ne=DIST_NOFRONTIER_NE)
+    for extra in (("-nobalance",), ("-nobalance", "-nofrontier")):
+        distributed_path(CUBE_N, DIST_NE_RANGE, extra=extra,
+                         expect_ne=DIST_NOBALANCE_NE)
     print(f"## phase 2c done at {time.perf_counter() - t0:.1f} s", flush=True)
     results = check_kernels(m, shapes, HSIZ, "centralized")
-    # the same kernels at the per-shard shapes of the distributed path
-    n_d, p_d = shapes_d["quality_vol"]
-    require(all(shapes_d[k][1] == p_d for k in CENTRAL),
-            f"the distributed path's kernels saw unequal tables {shapes_d}")
+    # the same kernels at the per-shard shapes of the balanced distributed
+    # path: a rolled-back iteration can leave the run's last launches on
+    # tables of different capacities, so the fixture source's tets index
+    # only the smallest table and each kernel's table is padded to its own
+    p_d = min(shapes_d[k][1] for k in CENTRAL)
+    print(f"## distributed path: last launches (N, P) {shapes_d}")
     src = shard_source(m_d, NPARTS, p_d)
     check_kernels(src, shapes_d, median_size(src), "distributed")
     results.update(check_interp(m_d, shapes_d))

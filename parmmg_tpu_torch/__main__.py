@@ -4,13 +4,15 @@
 Counterpart of `parmmg_tpu/__main__.py` for centralized input and output,
 with the same flag names: load → adapt on the GPU → save, printing the
 reference-style quality and edge-length histograms. Sweeps are
-active-set (frontier) sweeps unless `-nofrontier` is given. `-nparts N
--nobalance` adapts on N stacked shards with frozen interfaces and writes
-the merged mesh. Flags of paths this slice of the port does not carry
-(balancing between iterations, distributed I/O, fields, level-set, VTK,
-checkpoints, renumbering, partitioning output) are accepted by the parser
-and refused with `NotImplementedError` naming the ROADMAP item that
-brings them.
+active-set (frontier) sweeps unless `-nofrontier` is given. `-nparts N`
+adapts on N stacked shards, rebalancing between iterations (interface
+displacement, `-nlayers`; the graph cut on the last iteration; a full
+re-cut past `-groups-ratio` or the `-balance` band), and writes the
+merged mesh; `-nobalance` keeps the interfaces where the partition put
+them. Flags of paths this slice of the port does not carry (distributed
+I/O, fields, level-set, VTK, checkpoints, renumbering, partitioning
+output) are accepted by the parser and refused with
+`NotImplementedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -81,16 +83,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-niter", type=int, default=3,
                    help="outer remesh iterations")
     p.add_argument("-nparts", type=int, default=1,
-                   help="number of shards, stacked on the one device "
-                   "(above 1 only with -nobalance so far)")
+                   help="number of shards, stacked on the one device")
     p.add_argument("-nobalance", dest="nobalancing", action="store_true",
                    help="no resharding between iterations (frozen "
                    "interfaces)")
     p.add_argument("-balance", dest="balance_band", type=float,
-                   default=None)
-    p.add_argument("-nlayers", dest="ifc_layers", type=int, default=None)
+                   default=None,
+                   help="closed-loop balance band: measured work "
+                   "imbalance (max/mean) above this forces a full re-cut, "
+                   "with hysteresis (default 1.5, env "
+                   "PMMGTPU_BALANCE_BAND; <= 0 disables)")
+    p.add_argument("-nlayers", dest="ifc_layers", type=int, default=2,
+                   help="interface-displacement advancing-front depth")
     p.add_argument("-groups-ratio", dest="grps_ratio", type=float,
-                   default=None)
+                   default=2.0, help="max shard imbalance before SFC recut")
     p.add_argument("-mesh-size", dest="mesh_size", type=int, default=None,
                    help="minimum elements per shard before the run is "
                    "distributed (smaller meshes grow on one shard first)")
@@ -119,12 +125,6 @@ _REFUSED = (
     ("-pure-partitioning", "pure_partitioning", bool,
      "queue 1, item 12 (partitioning output)"),
     ("-rn", "renumber", bool, "queue 1, item 12 (SFC renumbering)"),
-    ("-balance", "balance_band", lambda v: v is not None,
-     "queue 1, item 10 (load balancing)"),
-    ("-nlayers", "ifc_layers", lambda v: v is not None,
-     "queue 1, item 10 (interface displacement)"),
-    ("-groups-ratio", "grps_ratio", lambda v: v is not None,
-     "queue 1, item 10 (repartitioning)"),
     ("-field", "field", lambda v: v is not None,
      "queue 1, item 11 (interp_fields_only)"),
     ("-ls", "ls", lambda v: v is not None, "queue 1, item 11 (level set)"),
@@ -142,12 +142,6 @@ def _refuse_unported(args) -> None:
         if is_set(getattr(args, dest)):
             raise NotImplementedError(
                 f"{flag}: not ported yet — ROADMAP {item} brings it")
-    if args.nparts > 1 and not args.nobalancing:
-        raise NotImplementedError(
-            f"-nparts {args.nparts} without -nobalance: the balancing "
-            "between iterations is not ported yet — ROADMAP queue 1, "
-            "item 10 (interface displacement and graph balancing) brings "
-            "it; add -nobalance for frozen interfaces")
     for path in (args.input, args.out):
         if path and path.endswith((".vtu", ".pvtu")):
             raise NotImplementedError(
@@ -157,15 +151,20 @@ def _refuse_unported(args) -> None:
 
 def print_default_values() -> None:
     """`-val`: print the default parameters."""
-    from .models.adapt import AdaptOptions
+    from .models.distributed import DistOptions
+    from .parallel.migrate import BALANCE_BAND_DEFAULT
 
-    d = AdaptOptions()
+    d = DistOptions()
     print("\nDefault parameters values:")
     print("\n** Generic options")
     print("verbosity (-v)          : 1")
     print("\n** Parameters")
     print(f"niter (-niter)          : {d.niter}")
     print("nparts (-nparts)        : 1")
+    print(f"ifc layers (-nlayers)   : {d.ifc_layers}")
+    print(f"groups ratio            : {d.grps_ratio}")
+    band = d.balance_band or BALANCE_BAND_DEFAULT
+    print(f"balance band (-balance) : {band}")
     print(f"angle detection (-ar)   : {d.angle}")
     print(f"hgrad (-hgrad)          : {d.hgrad}")
     print(f"hgradreq (-hgradreq)    : {d.hgradreq or 'off'}")
@@ -227,6 +226,8 @@ def main(argv=None, device=None) -> int:
         nosurf=args.nosurf, opnbdy=args.opnbdy, verbose=args.verbose,
         mem_budget_mb=args.mem, frontier=not args.nofrontier,
         nparts=args.nparts, nobalancing=args.nobalancing,
+        balance_band=args.balance_band, ifc_layers=args.ifc_layers,
+        grps_ratio=args.grps_ratio,
         min_shard_elts=args.mesh_size or DistOptions.min_shard_elts,
     )
 
@@ -247,6 +248,11 @@ def main(argv=None, device=None) -> int:
             if "failure" in rec:
                 print(f"  ## iteration {rec['iter']} rolled back "
                       f"({rec['error']}): {rec['failure']}")
+        for b in info.get("balance", ()):
+            print(f"  ## iteration {b['it']} rebalanced ({b['trigger']}): "
+                  f"{b['cells']} cells moved, imbalance "
+                  f"{b['imbalance_pre']} -> {b['imbalance_post']}, "
+                  f"{b['wall_s']} s")
         print(quality.format_histogram(info["qual_in"],
                                        "INPUT MESH QUALITY"))
         print(quality.format_histogram(info["qual_out"],

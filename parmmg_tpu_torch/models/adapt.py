@@ -35,7 +35,32 @@ from ..ops import analysis, collapse, common, quality, smooth, split, swap
 from ..ops.common import scatter, take
 
 
-class MemoryBudgetError(RuntimeError):
+class AdaptError(RuntimeError):
+    """Base of the typed failures (always also a RuntimeError, so the
+    drivers' rollback absorbs them)."""
+
+
+class CapacityError(AdaptError):
+    """A static capacity (shard slots, entity tables) was undershot.
+
+    Recoverable: the caller can grow the capacities and retry. Carries
+    the overflow the raising site computed:
+
+    - ``overflow``: ``[D, 4]`` int array of per-shard excess ``[verts,
+      tets, trias, edges]`` (integrate-side overflow), or None;
+    - ``counts`` / ``caps``: pack-side per-destination counts vs the
+      static slot caps ``[tets, trias, edges]``, or None.
+    """
+
+    def __init__(self, message: str, *, overflow=None, counts=None,
+                 caps=None):
+        super().__init__(message)
+        self.overflow = None if overflow is None else np.asarray(overflow)
+        self.counts = None if counts is None else np.asarray(counts)
+        self.caps = None if caps is None else np.asarray(caps)
+
+
+class MemoryBudgetError(AdaptError):
     """The configured device-memory budget blocks a needed growth."""
 
 
@@ -86,6 +111,11 @@ class AdaptOptions:
     # (finite coordinates and metric, positive live tets, connectivity
     # in range)
     validate: str = "basic"
+    # closed-loop balance band of the distributed driver: measured work
+    # imbalance (max/mean) above it forces a full re-cut, with hysteresis
+    # (CLI -balance); None = PMMGTPU_BALANCE_BAND, else 1.5; <= 0 turns
+    # the policy off (-nobalance turns off all resharding)
+    balance_band: Optional[float] = None
     # refused (ROADMAP queue 1, item 15 — host-side layers)
     checkpoint_dir: Optional[str] = None
     checkpoint_store: Optional[object] = None

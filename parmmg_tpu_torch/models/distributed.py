@@ -1,15 +1,22 @@
-"""Distributed remesh driver on one device: shards with frozen
-interfaces.
+"""Distributed remesh driver on one device: shards with interfaces
+frozen within an iteration and displaced between iterations.
 
 Counterpart of `parmmg_tpu/models/distributed.py` on its single-process
-path (`_remesh_phase_local`) with full-table sweeps: the mesh is
-partitioned along a Morton curve into `nparts` shards of uniform
-capacities, carried as a list of per-shard `Mesh`es; every iteration
-remeshes each shard's interior with its PARBDY interfaces frozen, then
-re-interpolates the metric from the pre-remesh snapshot; at the end the
-shards are stacked once (leading shard axis, as the JAX package's
-stacked mesh), the new vertices get global ids and `merge_adapted` joins
-the shards into one centralized mesh.
+path (`_remesh_phase_local`): the mesh is partitioned along a Morton
+curve into `nparts` shards of uniform capacities, carried as a list of
+per-shard `Mesh`es; every iteration remeshes each shard's interior with
+its PARBDY interfaces frozen, re-interpolates the metric from the
+pre-remesh snapshot and then, unless `nobalancing` (`-nobalance`),
+rebalances: the shards are stacked (leading shard axis, as the JAX
+package's stacked mesh), tets are recolored by interface displacement
+(`ifc_layers` layers of advancing front) or, on the last iteration and
+in graph mode, by a global weighted Morton cut, and the tets that change
+color migrate to their new shard (`parallel/migrate.py`), so the bands
+frozen in one iteration are interior in the next. A displaced partition
+skewed past `grps_ratio`, a `BalancePolicy` decision or repeated
+capacity misses fall back to a full re-cut (`_rebalance_full`). At the
+end the new vertices get global ids and `merge_adapted` joins the shards
+into one centralized mesh.
 
 Each sweep runs the single-shard `_sweep_body` once per shard (the JAX
 package vmaps it over the shard axis, which gives the same per-shard
@@ -19,20 +26,21 @@ split-dominant phase skip, the convergence rule on the record summed
 over shards, and, with frontier sweeps, the tables' staleness level (the
 largest over the shards) and adjacency validity (all shards). The
 per-shard frontier masks are carried from sweep to sweep and, through
-the compaction, from one iteration to the next; a drained carry skips
-the iteration's sweeps.
+the compaction and the migration (as global ids), from one iteration to
+the next; a drained carry skips the iteration's sweeps.
 
-This slice runs with `nobalancing=True` (`-nobalance`): interfaces stay
-where the partition put them. Interface displacement and graph balancing
-between iterations (`parallel/migrate.py`) are refused with
-`NotImplementedError` until ROADMAP queue 1 item 10 brings them, as are
-checkpoints, fault plans, the governor and the communicator checks.
+Not ported: checkpoints, fault plans, telemetry, the governor and the
+communicator checks (`check_comm`), refused with `NotImplementedError`
+naming their ROADMAP items. A `CapacityError` that escapes an iteration
+rolls it back as any other `RuntimeError` does (the JAX package's
+iteration-level grow-and-retry comes with the failsafe layer).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -42,6 +50,7 @@ from .. import resolve_device
 from ..core import adjacency, tags
 from ..core.mesh import Mesh, compact, compact_aux
 from ..ops import analysis, interp, quality
+from ..parallel import migrate as migrate_mod
 from ..parallel import partition as partition_mod
 from ..parallel.distribute import (
     ShardComm,
@@ -54,6 +63,7 @@ from ..parallel.distribute import (
 )
 from .adapt import (
     AdaptOptions,
+    CapacityError,
     MemoryBudgetError,
     _check_budget,
     _sweep_body,
@@ -70,29 +80,36 @@ from .adapt import (
     validate,
 )
 
+# redistribution modes (the JAX package's REDISTRIBUTION_* constants)
+REDISTRIBUTION_GRAPH_BALANCING = 0
+REDISTRIBUTION_IFC_DISPLACEMENT = 1
+
+
 @dataclasses.dataclass
 class DistOptions(AdaptOptions):
-    """Distributed controls on top of the adaptation options. The
-    balancing parameters of the JAX package's `DistOptions` come with
-    the balancing (ROADMAP queue 1, item 10)."""
+    """Distributed controls on top of the adaptation options (the JAX
+    package's `DistOptions`)."""
 
     nparts: int = 8
     # -nobalance: no resharding between iterations; frozen bands stay
-    # frozen for all niter. True is the only mode of this slice when
-    # nparts > 1; the balancing (ROADMAP queue 1, item 10) brings False
+    # frozen for all niter
     nobalancing: bool = False
+    # advancing-front displacement depth per iteration (-nlayers)
+    ifc_layers: int = 2
+    # max shard-size imbalance (max/mean) before a full SFC re-cut
+    # replaces the displaced partition (the CLI's -groups-ratio gives 2.0)
+    grps_ratio: float = 2.5
+    # between-iteration redistribution mode; graph mode recomputes a
+    # global weighted Morton cut every iteration
+    # (partition.stacked_graph_colors) instead of advancing fronts. The
+    # last iteration always takes the graph cut.
+    repartitioning: int = REDISTRIBUTION_IFC_DISPLACEMENT
+    # communicator check every iteration: refused (ROADMAP queue 1,
+    # item 12, parallel/chkcomm.py)
+    check_comm: bool = False
     # minimum elements per shard: a smaller mesh is first grown on one
     # shard, so frozen interfaces stay a thin fraction of each shard
     min_shard_elts: int = 256
-
-
-def _refuse_balancing(opts: DistOptions) -> None:
-    if not opts.nobalancing and opts.nparts > 1:
-        raise NotImplementedError(
-            "distributed runs rebalance between iterations unless "
-            "nobalancing=True (CLI -nobalance): ROADMAP queue 1, item 10 "
-            "(interface displacement and graph balancing, "
-            "parallel/migrate.py) brings the balancing")
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +203,12 @@ def _vsweep(shards: List[Mesh], ecap: int, opts: AdaptOptions, hausd,
                         for f in frs]
 
 
+def _imbalance(shard_ne: np.ndarray) -> float:
+    """Largest over mean live tets of the shards, to 4 places."""
+    return round(float(shard_ne.max()) / max(float(shard_ne.mean()), 1.0),
+                 4)
+
+
 def _rec_from_stats(shards: List[Mesh], stats) -> dict:
     """One history record from the per-shard SweepStats: sums over the
     shards, the largest unique-edge count, any capped split, and the
@@ -212,8 +235,7 @@ def _rec_from_stats(shards: List[Mesh], stats) -> dict:
         shard_active=[round(float(a) / max(int(u), 1), 4)
                       for a, u in zip(na.tolist(), nu.tolist())],
         shard_ne=[int(x) for x in shard_ne.tolist()],
-        imbalance=round(float(shard_ne.max())
-                        / max(float(shard_ne.mean()), 1.0), 4),
+        imbalance=_imbalance(shard_ne),
     )
 
 
@@ -234,8 +256,7 @@ def _drained_rec(shards: List[Mesh], history: List[dict]) -> dict:
         n_unique=last_nu, capped=False, n_active=0,
         active_fraction=0.0, shard_active=[0.0] * len(shards),
         shard_ne=[int(x) for x in shard_ne.tolist()],
-        imbalance=round(float(shard_ne.max())
-                        / max(float(shard_ne.mean()), 1.0), 4),
+        imbalance=_imbalance(shard_ne),
         skipped=True,
     )
     if last_band is not None:
@@ -336,13 +357,19 @@ def adapt_distributed(mesh: Mesh, opts: Optional[DistOptions] = None,
     Preprocess (adjacency, analysis, metric) → grow single-shard while
     the mesh is smaller than `nparts * min_shard_elts` → Morton
     partition with metric weights → split → `niter` × [remesh with
-    frozen interfaces → interpolate] → global numbering. Returns
-    (stacked Mesh, ShardComm, info); `merge_adapted` gives the
-    centralized output."""
+    frozen interfaces → interpolate → rebalance] → global numbering.
+    Returns (stacked Mesh, ShardComm, info); `merge_adapted` gives the
+    centralized output. `info["balance"]` holds one row per iteration
+    whose rebalancing moved cells or re-cut: trigger, cells moved,
+    imbalance (max/mean) before and after, and the block's wall time."""
     device = resolve_device(device)
     opts = opts or DistOptions()
     check_supported(opts)
-    _refuse_balancing(opts)
+    if opts.check_comm:
+        raise NotImplementedError(
+            "DistOptions.check_comm (communicator checks every iteration) "
+            "is not ported yet: ROADMAP queue 1, item 12 "
+            "(parallel/chkcomm.py) brings it")
     if mesh.fields.shape[1] + mesh.ls.shape[1] + mesh.disp.shape[1]:
         raise NotImplementedError(
             "meshes carrying solution fields, a level-set or a "
@@ -378,33 +405,49 @@ def adapt_distributed(mesh: Mesh, opts: Optional[DistOptions] = None,
     shards = _presize_for_target(unstack_mesh(stacked), opts)
 
     history: List[dict] = []
-    shards, status = _iteration_loop(shards, opts, hausd, history)
+    balance: List[dict] = []
+    shards, status, icap = _iteration_loop(shards, opts, hausd, history,
+                                           balance)
     stacked = assign_global_ids(stack_meshes(shards))
-    return (stacked, rebuild_comm(stacked),
-            _finish_dist_info(shards, history, h_in, status))
+    info = _finish_dist_info(shards, history, h_in, status)
+    info["balance"] = balance
+    return stacked, rebuild_comm(stacked, icap), info
+
+
+def _balance_policy(opts: DistOptions):
+    """The run's closed-loop balancer (one instance: its state is the
+    hysteresis), or None when the band is off or nothing rebalances."""
+    if opts.nobalancing or opts.nparts <= 1:
+        return None
+    band = migrate_mod.resolve_balance_band(opts)
+    return None if band is None else migrate_mod.BalancePolicy(band)
 
 
 def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
-                    history: List[dict]):
-    """The `niter` remesh/interpolate iterations. Each is validated at
-    its boundary; a numeric, capacity or budget failure (ValueError,
-    RuntimeError, FloatingPointError, OverflowError) rolls back to the
-    last good state and ends the run with LOWFAILURE. A kernel that
-    fails to build or launch raises `KernelError`, which is none of
-    these and ends the run. With `opts.frontier` the changed masks are
-    carried from one iteration to the next (None = all active at the
-    start and after a rollback, whose shards predate the carry).
-    Returns (shards, status)."""
+                    history: List[dict], balance: List[dict]):
+    """The `niter` remesh/interpolate/rebalance iterations. Each is
+    validated at its boundary; a numeric, capacity or budget failure
+    (ValueError, RuntimeError — `CapacityError` included —,
+    FloatingPointError, OverflowError) rolls back to the last good state
+    and ends the run with LOWFAILURE. A kernel that fails to build or
+    launch raises `KernelError`, which is none of these and ends the
+    run. With `opts.frontier` the changed masks are carried from one
+    iteration to the next (None = all active at the start and after a
+    rollback, whose shards predate the carry). Returns (shards, status,
+    icap: the node tables' width the last rebalancing left, or None)."""
     emult = [1.6]
     status = tags.ReturnStatus.SUCCESS
+    policy = _balance_policy(opts)
     # every op returns new tensors, so the shards of the last good
     # iteration stay as they were
     last_good = shards
     fr_carry = None
+    icap = None
     for it in range(opts.niter):
         try:
-            shards, fr_carry = _one_iteration(shards, opts, hausd, history,
-                                              it, emult, fr_carry)
+            shards, icap, fr_carry = _one_iteration(
+                shards, opts, hausd, history, it, emult, icap, fr_carry,
+                policy, balance)
             validate(shards, opts, it)
         except NotImplementedError:
             raise
@@ -414,18 +457,20 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
                                 error=type(e).__name__))
             shards = last_good
             fr_carry = None
+            icap = None
             status = tags.ReturnStatus.LOWFAILURE
             break
         last_good = shards
-    return shards, status
+    return shards, status, icap
 
 
 def _one_iteration(shards: List[Mesh], opts: DistOptions, hausd,
-                   history: List[dict], it: int, emult, fr=None):
-    """Remesh every shard with frozen interfaces, then interpolate the
-    metric from the pre-remesh snapshot. The frontier carry `fr` goes
-    through the compaction with the shards. Returns (shards, carry)."""
-    _refuse_balancing(opts)
+                   history: List[dict], it: int, emult, icap=None,
+                   fr=None, policy=None, balance=None):
+    """Remesh every shard with frozen interfaces, interpolate the metric
+    from the pre-remesh snapshot, then rebalance (unless -nobalance).
+    The frontier carry `fr` goes through the compaction and the
+    migration with the shards. Returns (shards, icap, carry)."""
     # the snapshot shares tensors with the shards: the remesh returns
     # new ones and leaves its inputs as they were
     old = [adjacency.build_adjacency(m) for m in shards]
@@ -436,7 +481,169 @@ def _one_iteration(shards: List[Mesh], opts: DistOptions, hausd,
     else:
         packed = [compact_aux(m, c) for m, c in zip(shards, fr)]
         shards, fr = [p[0] for p in packed], [p[1] for p in packed]
-    return interp_phase(shards, old, opts), fr
+    shards = interp_phase(shards, old, opts)
+    if not opts.nobalancing and opts.nparts > 1:
+        stacked, icap, fr = _rebalance(
+            stack_meshes(shards), opts, history, it, icap,
+            None if fr is None else torch.stack(fr), policy, balance)
+        shards = unstack_mesh(stacked)
+        fr = None if fr is None else list(fr.unbind(0))
+    return shards, icap, fr
+
+
+def _grow(stacked: Mesh, color, **caps):
+    """`grow_stacked` on a stacked mesh, with the [D,T] colors padded
+    to the new tet capacity (-1: no color)."""
+    stacked = stack_meshes(grow_stacked(unstack_mesh(stacked), **caps))
+    pad = stacked.tet.shape[1] - color.shape[1]
+    if pad:
+        color = torch.nn.functional.pad(color, (0, pad), value=-1)
+    return stacked, color
+
+
+def _presize_stacked(stacked: Mesh, opts: DistOptions) -> Mesh:
+    return stack_meshes(_presize_for_target(unstack_mesh(stacked), opts))
+
+
+def _rebalance(stacked: Mesh, opts: DistOptions, history: List[dict],
+               it: int, icap, fr, policy, balance):
+    """The balancing block between iterations (the JAX package's
+    `_one_iteration` from `if not opts.nobalancing and nparts > 1`):
+    global ids and node tables, then graph colors (last iteration or
+    graph mode) or interface-displacement colors, the contiguity repair
+    when something moves, and the migration — or a full re-cut when the
+    policy forces one, the new sizes pass `grps_ratio` or three
+    capacity-sized attempts at the exchange fall short. `fr` is the [D,
+    PC] frontier carry or None. Returns (stacked, icap, fr)."""
+    nparts = opts.nparts
+    last = it == opts.niter - 1
+    decision = policy.evaluate(history, it) if policy is not None else None
+    force_recut = bool(decision and decision.get("action") == "recut")
+    t_bal = time.monotonic()
+    stacked = assign_global_ids(stacked)
+    comm = rebuild_comm(stacked, icap)
+    stacked = migrate_mod.stacked_adjacency(stacked)
+    graph_mode = (last or opts.repartitioning
+                  == REDISTRIBUTION_GRAPH_BALANCING)
+    if graph_mode:
+        color = partition_mod.stacked_graph_colors(stacked, nparts)
+    else:
+        color = migrate_mod.displace_colors(stacked, comm, nparts,
+                                            round_id=0,
+                                            layers=opts.ifc_layers)
+    cnts = migrate_mod.migration_counts(stacked, color, nparts).cpu().numpy()
+    if cnts.max() > 0:
+        # the front moved: reattach any component it pinched off
+        color = migrate_mod.fix_contiguity(stacked, color, nparts)
+        cnts = migrate_mod.migration_counts(stacked, color,
+                                            nparts).cpu().numpy()
+    fr_keys = None
+    if fr is not None:
+        # the active set as gid keys before the exchange: last sweep's
+        # changed vertices, every vertex of a migrating cell and the
+        # current interface bands (the displacement unfreezes them)
+        par_pre = (stacked.vtag & tags.PARBDY) != 0
+        fr_keys = migrate_mod.frontier_gid_keys(
+            stacked,
+            fr | par_pre | migrate_mod.migrating_vertices(stacked, color))
+    moved_cells = int(cnts.sum())
+    shard_ne = stacked.tmask.sum(dim=1).cpu().numpy()
+    new_ne = shard_ne - cnts.sum(axis=1) + cnts.sum(axis=0)
+    imb_pre = (decision or {}).get("imbalance")
+    if imb_pre is None:
+        imb_pre = _imbalance(shard_ne)
+    trigger = "graph" if graph_mode else "displacement"
+    if opts.verbose >= 2:
+        print(f"  [balance] moved={moved_cells} new_ne={new_ne.tolist()}")
+    recut = force_recut or (
+        new_ne.max() > opts.grps_ratio * max(new_ne.mean(), 1.0))
+    if recut:
+        trigger = "balance-policy" if force_recut else "grps_ratio"
+        if opts.verbose >= 2:
+            print(f"  [balance] full re-cut ({trigger})")
+    elif cnts.max() > 0:
+        slot_cap = int(cnts.max()) + 8
+        # headroom for the incoming entities before the exchange
+        pc, tc = stacked.vert.shape[1], stacked.tet.shape[1]
+        fc, ec = stacked.tria.shape[1], stacked.edge.shape[1]
+        shard_np = stacked.vmask.sum(dim=1).cpu().numpy()
+        shard_nf = stacked.trmask.sum(dim=1).cpu().numpy()
+        inc = cnts.sum(axis=0)
+        need_t = int((shard_ne + inc).max())
+        need_p = int((shard_np + 4 * inc).max())
+        need_f = int((shard_nf + 2 * inc).max())
+        if need_t > 0.9 * tc or need_p > 0.9 * pc or need_f > 0.9 * fc:
+            stacked, color = _grow(
+                stacked, color, pcap=max(pc, int(need_p * 1.3) + 8),
+                tcap=max(tc, int(need_t * 1.3) + 8),
+                fcap=max(fc, int(need_f * 1.3) + 8),
+                ecap=max(ec, int(need_t * 0.5) + 64))
+        # bounded grow-and-retry on CapacityError, each retry sized by
+        # the error's counts or overflow; repeated misses re-cut
+        moved = None
+        for att in range(3):
+            try:
+                moved = migrate_mod.migrate(stacked, color, nparts,
+                                            slot_cap)
+                break
+            except CapacityError as e:
+                history.append(dict(iter=it, phase="migrate",
+                                    failure=str(e), error=type(e).__name__,
+                                    recovered=True))
+                if att == 2:
+                    break
+                if e.counts is not None:
+                    slot_cap = int(e.counts.max()) + 8
+                if e.overflow is not None:
+                    over = np.maximum(np.asarray(e.overflow), 0).max(axis=0)
+                    stacked, color = _grow(
+                        stacked, color,
+                        pcap=stacked.vert.shape[1] + int(over[0] * 1.3) + 8,
+                        tcap=stacked.tet.shape[1] + int(over[1] * 1.3) + 8,
+                        fcap=stacked.tria.shape[1] + int(over[2] * 1.3) + 8,
+                        ecap=stacked.edge.shape[1] + int(over[3] * 1.3)
+                        + 64)
+        if moved is None:
+            trigger, recut = "capacity-recut", True
+        else:
+            stacked = stack_meshes([compact(m) for m in unstack_mesh(moved)])
+            stacked, comm = migrate_mod.retag_interfaces(stacked)
+            icap = comm.icap
+            stacked = _presize_stacked(stacked, opts)
+            if fr is not None:
+                # the carried gid set on the new owners, and the
+                # post-exchange interface bands
+                par_post = (stacked.vtag & tags.PARBDY) != 0
+                fr = migrate_mod.frontier_from_gid_keys(stacked,
+                                                        fr_keys) | par_post
+    if recut:
+        stacked, comm = _rebalance_full(stacked, comm, nparts)
+        icap = None
+        stacked = _presize_stacked(stacked, opts)
+        # the merge and split rewrite every shard: the next iteration
+        # starts from the full frontier
+        fr = None if fr is None else torch.ones(
+            (nparts, stacked.vert.shape[1]), dtype=torch.bool,
+            device=stacked.device)
+    if moved_cells or recut:
+        balance.append(dict(
+            it=it, trigger=trigger, cells=moved_cells,
+            imbalance_pre=float(imb_pre),
+            imbalance_post=_imbalance(
+                stacked.tmask.sum(dim=1).cpu().numpy()),
+            wall_s=round(time.monotonic() - t_bal, 4),
+            reason=str((decision or {}).get("reason", ""))))
+    return stacked, icap, fr
+
+
+def _rebalance_full(stacked: Mesh, comm: ShardComm, nparts: int):
+    """Full SFC re-cut through a merge and a split on the host: the
+    fallback when the displaced partition skewed too far."""
+    merged = adjacency.build_adjacency(merge_shards(stacked, comm))
+    part = partition_mod.sfc_partition(
+        merged, nparts, partition_mod.metric_weights(merged)).cpu().numpy()
+    return split_mesh(merged, part, nparts, assume_adjacency=True,
+                      build_shard_adjacency=False)
 
 
 def merge_adapted(stacked: Mesh, comm: ShardComm) -> Mesh:

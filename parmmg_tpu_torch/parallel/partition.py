@@ -1,9 +1,10 @@
 """Space-filling-curve mesh partitioning.
 
 Counterpart of `parmmg_tpu/parallel/partition.py` (`tet_morton_keys`,
-`metric_weights`, `sfc_partition`): tets are ordered by the Morton key of
-their barycenter and cut into contiguous ranges of equal weight — one
-stable sort and one prefix sum.
+`metric_weights`, `sfc_partition`, `stacked_graph_colors`): tets are
+ordered by the Morton key of their barycenter and cut into contiguous
+ranges of equal weight — one stable sort and one prefix sum, or, on
+stacked shards, a histogram of Morton buckets and its prefix sum.
 
 The weights are float32 as in the reference, and a float32 prefix sum
 depends on its order of summation. `prefix_sum` fixes that order to the
@@ -18,7 +19,7 @@ import torch
 
 from ..core import metric as metric_mod, sfc
 from ..core.mesh import Mesh, tet_volumes
-from ..ops.common import take
+from ..ops.common import scatter, take
 from ..ops.locate import _box, _mean_rows
 
 # tile length of the order-fixed prefix sum
@@ -91,3 +92,36 @@ def sfc_partition(mesh: Mesh, nparts: int, weights=None):
     part = torch.zeros(mesh.tcap, dtype=torch.int32, device=mesh.device)
     part[order] = part_sorted
     return torch.where(mesh.tmask, part, -1)
+
+
+def stacked_graph_colors(stacked: Mesh, nparts: int, nbuckets: int = 4096):
+    """[D, TC] target shard per tet of a stacked mesh from one global
+    weighted Morton cut, without centralizing the mesh (the graph-
+    balancing redistribution): the metric weights of all shards summed
+    into a histogram of `nbuckets` Morton buckets (in the order of the
+    flattened [D, TC] tets, as the reference's scatter-add), its prefix
+    sum cut into `nparts` equal ranges, and every tet given its bucket's
+    part."""
+    from ..parallel.distribute import unstack_mesh
+
+    shards = unstack_mesh(stacked)
+    live = stacked.tmask
+    # one frame for all shards' keys: the global box of live barycenters
+    bc = torch.stack([_mean_rows(take(m.vert, m.tet)) for m in shards])
+    lo, hi = _box(bc.reshape(-1, 3), live.reshape(-1))
+    keys = sfc.morton_keys(bc, lo, hi)                       # [D,TC]
+    # morton_keys gives 3*10-bit keys in [0, 2^30)
+    bucket = torch.clamp(keys >> (30 - nbuckets.bit_length() + 1), 0,
+                         nbuckets - 1)
+    w = torch.stack([metric_weights(m) for m in shards])
+    hist = scatter(torch.zeros(nbuckets, dtype=torch.float32,
+                               device=stacked.device),
+                   bucket.reshape(-1), torch.where(live, w, 0.0).reshape(-1),
+                   "add")
+    csum = prefix_sum(hist)
+    total = csum[-1]
+    mid = csum - 0.5 * hist
+    part_of_bucket = torch.clamp(
+        (mid * nparts / torch.clamp(total, min=1e-30)).to(torch.int32),
+        0, nparts - 1)
+    return torch.where(live, part_of_bucket[bucket.long()], -1)

@@ -208,10 +208,9 @@ UNPORTED_OPTIONS = [
 ]
 
 UNPORTED_FLAGS = [
-    ["-nparts", "2"], ["-distributed-output"], ["-distributed-input"],
+    ["-distributed-output"], ["-distributed-input"],
     ["-field", "f.sol"], ["-ls"], ["-ckpt", "ck"], ["-ckpt-every", "2"],
-    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"],
-    ["-balance", "1.2"], ["-out", "o.vtu"],
+    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"], ["-out", "o.vtu"],
 ]
 
 

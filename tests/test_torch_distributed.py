@@ -11,19 +11,34 @@ numpy arrays.
   weights), `split_mesh` (every leaf of every shard and the `ShardComm`
   tables), `assign_global_ids`, `rebuild_comm` and `merge_shards`, on the
   analysed unit cube n=5 with a graded metric: all equal.
+- Balancing between iterations (`parallel/migrate.py`,
+  `partition.stacked_graph_colors`, the driver's `_rebalance_full`) on
+  the split of that mesh, handed over from the JAX side: the
+  displacement and graph colors, `fix_contiguity` (also on colors with
+  islands), `migration_counts`, `migrate` then `compact` and
+  `retag_interfaces` (every leaf and the `ShardComm` tables), the
+  `CapacityError` of a too-small slot capacity (its counts) and the
+  outcome of a migration without headroom, the frontier's gid-key round
+  trip through the migration, and the full re-cut: all equal. The
+  `BalancePolicy` decisions on the synthetic histories of
+  tests/test_m24_balance.py equal the JAX policy's.
 - The slice as a whole: `adapt_distributed(DistOptions(nparts=4,
-  nobalancing=True, niter=2, min_shard_elts=16, max_sweeps=6))` on the
-  unit cube n=5, once with `hsiz=0.18` and full-table sweeps and once
-  with a graded iso metric and frontier sweeps (the per-shard frontier
-  carried across sweeps and iterations), against the live JAX run: the
-  per-sweep integer history (the keys of tests/test_m1_remesh.py:258
-  and more, with `shard_ne`) and the histogram counts equal; the stacked
-  and the merged mesh equal, vertices slot for slot with coordinates and
-  metric within `_rtol` (5e-11), the live tets as a set (the
-  reference's jit and op-by-op runs order them differently, see
-  `_assert_leaves`); qmin/qavg within 5e-11 relative.
-- The snapshot the interpolation reads is not touched by the remesh, and
-  `-nparts 4 -nobalance` runs through the CLI.
+  niter=2, min_shard_elts=16, max_sweeps=6))` on the unit cube n=5, with
+  `nobalancing=True` once with `hsiz=0.18` and full-table sweeps and
+  once with a graded iso metric and frontier sweeps (the per-shard
+  frontier carried across sweeps and iterations), and with balancing on
+  the graded metric with frontier sweeps (iteration 0 displaces the
+  interfaces, the last one takes the graph cut, the frontier crosses the
+  migration as global ids), against the live JAX run: the per-sweep
+  integer history (the keys of tests/test_m1_remesh.py:258 and more,
+  with `shard_ne`) and the histogram counts equal; the stacked and the
+  merged mesh equal, vertices slot for slot with coordinates and metric
+  within `_rtol` (5e-11), the live tets as a set (the reference's jit
+  and op-by-op runs order them differently, see `_assert_leaves`);
+  qmin/qavg within 5e-11 relative.
+- The snapshot the interpolation reads is not touched by the remesh;
+  `-nparts 4 -nobalance` and `-nparts 4 -balance 1.2 -nlayers 2` run
+  through the CLI and write the API's merged mesh.
 """
 
 import dataclasses
@@ -37,9 +52,11 @@ from parmmg_tpu_torch import kernels as t_kernels
 from parmmg_tpu_torch.core import adjacency as t_adj
 from parmmg_tpu_torch.core.mesh import LEAVES, Mesh
 from parmmg_tpu_torch.io import medit as t_medit
+from parmmg_tpu_torch.models import adapt as t_adapt
 from parmmg_tpu_torch.models import distributed as t_dist
 from parmmg_tpu_torch.ops import interp as t_interp
 from parmmg_tpu_torch.parallel import distribute as t_distr
+from parmmg_tpu_torch.parallel import migrate as t_mig
 from parmmg_tpu_torch.parallel import partition as t_part
 from parmmg_tpu_torch.utils import conformity, gen as t_gen
 from test_torch_ops import one_torch_thread, start_jax_side  # noqa: F401
@@ -57,14 +74,20 @@ COMM = ("comm_idx", "counts", "l2g", "owner")
 CUMSUM_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4097, 70001)
 
 
+CASES = ("hsiz", "graded", "balanced")
+
+
 def _case_options(case: str) -> dict:
     """DistOptions of a case: `hsiz` full-table, `graded` with frontier
-    sweeps."""
+    sweeps, `balanced` as `graded` with the balancing between
+    iterations."""
     kw = dict(CASE)
     if case == "hsiz":
         kw["hsiz"] = 0.18
     else:
         kw["frontier"] = True
+    if case == "balanced":
+        kw["nobalancing"] = False
     return kw
 
 
@@ -127,6 +150,122 @@ def _jax_distribute(out):
     comm = distribute.rebuild_comm(st)
     _put(out, "comm2", comm, COMM)
     _put(out, "merged", distribute.merge_shards(st, comm), LEAVES)
+    _jax_balance(out, mesh, part)
+    _jax_policy(out)
+
+
+def _islands(color, tmask):
+    """Colors with islands: every 37th live tet takes the next color."""
+    c = np.asarray(color).copy()
+    flat, live = c.reshape(-1), np.asarray(tmask).reshape(-1)
+    pick = np.nonzero(live)[0][::37]
+    flat[pick] = (flat[pick] + 1) % c.shape[0]
+    return c
+
+
+def _grown_caps(st):
+    """Twice every capacity of a stacked mesh (room for the migration)."""
+    return dict(pcap=st.vert.shape[1] * 2, tcap=st.tet.shape[1] * 2,
+                fcap=st.tria.shape[1] * 2, ecap=st.edge.shape[1] * 2)
+
+
+def _jax_balance(out, mesh, part):
+    """The balancing modules on the split of the distribute part's mesh
+    (global ids assigned, node tables rebuilt, shard adjacency built, as
+    the driver's balancing block starts)."""
+    import jax
+    import jax.numpy as jnp
+
+    from parmmg_tpu.core.mesh import compact
+    from parmmg_tpu.failsafe import CapacityError
+    from parmmg_tpu.models.distributed import _rebalance_full, grow_stacked
+    from parmmg_tpu.parallel import distribute, migrate, partition
+
+    st, _ = distribute.split_mesh(mesh, part, 4)
+    st = distribute.assign_global_ids(st)
+    comm = distribute.rebuild_comm(st)
+    _put(out, "bal/in", st, LEAVES)
+    disp = migrate.displace_colors(st, comm, 4, round_id=0, layers=2)
+    out["bal/displace"] = np.asarray(disp)
+    graph = partition.stacked_graph_colors(st, 4)
+    out["bal/graph"] = np.asarray(graph)
+    color = migrate.fix_contiguity(st, disp, 4)
+    out["bal/fixed"] = np.asarray(color)
+    noisy = _islands(graph, st.tmask)
+    out["bal/fixed_noisy"] = np.asarray(
+        migrate.fix_contiguity(st, jnp.asarray(noisy), 4))
+    cnts = migrate.migration_counts(st, color, 4)
+    out["bal/counts"] = np.asarray(cnts)
+    out["bal/migrating"] = np.asarray(migrate.migrating_vertices(st, color))
+    chg = (np.random.default_rng(3).random(st.vmask.shape) < 0.3) \
+        & np.asarray(st.vmask)
+    keys = migrate.frontier_gid_keys(st, jnp.asarray(chg))
+    out["bal/chg"], out["bal/keys"] = chg, np.asarray(keys)
+    # without headroom: the outcome (a mesh or the overflow) is compared
+    try:
+        _put(out, "bal/tight", migrate.migrate(
+            st, graph, 4, int(np.asarray(
+                migrate.migration_counts(st, graph, 4)).max()) + 8), LEAVES)
+    except CapacityError as e:
+        out["bal/tight_overflow"] = np.asarray(e.overflow)
+    st2 = grow_stacked(st, **_grown_caps(st))
+    color = jnp.pad(color, ((0, 0), (0, st2.tet.shape[1] - color.shape[1])),
+                    constant_values=-1)
+    try:
+        migrate.migrate(st2, color, 4, 1)
+    except CapacityError as e:
+        out["bal/cap_counts"], out["bal/cap_caps"] = e.counts, e.caps
+    moved = migrate.migrate(st2, color, 4, int(np.asarray(cnts).max()) + 8)
+    _put(out, "bal/moved", moved, LEAVES)
+    st3, comm3 = migrate.retag_interfaces(jax.vmap(compact)(moved))
+    _put(out, "bal/retag", st3, LEAVES)
+    _put(out, "bal/comm3", comm3, COMM)
+    out["bal/decoded"] = np.asarray(migrate.frontier_from_gid_keys(st3, keys))
+    st4, comm4 = _rebalance_full(st3, comm3, 4)
+    _put(out, "bal/full", st4, LEAVES)
+    _put(out, "bal/comm4", comm4, COMM)
+
+
+def _policy_matrix(policy_cls, work_fn):
+    """The decisions of tests/test_m24_balance.py's BalancePolicy matrix
+    (:142-211) and its measured-work cases, one string a decision."""
+    def rows(it, work, active=None):
+        return dict(iter=it, shard_ne=list(work),
+                    shard_active=list(active) if active is not None
+                    else [1.0] * len(work))
+
+    skew = [400, 100, 100, 100]
+    runs = [
+        (1.5, {}, [[rows(it, [100] * 4)] for it in range(5)]),
+        (1.5, {}, [[], [dict(iter=1, failure="boom", shard_ne=[1, 2])]]),
+        (2.0, {}, [[rows(0, [170, 100, 100, 100])],
+                   [rows(1, [180, 100, 100, 100])]]),
+        (1.5, dict(min_interval=2), [[rows(it, skew)] for it in range(3)]),
+        (1.5, dict(min_interval=1), [[rows(0, skew)], [rows(1, [100] * 4)],
+                                     [rows(2, skew)]]),
+    ]
+    table = []
+    for band, kw, hists in runs:
+        p = policy_cls(band, **kw)
+        for it, hist in enumerate(hists):
+            d = p.evaluate(hist, it)
+            table.append(f"{d['action']} {d['imbalance']} {d['reason']} "
+                         f"{d['work']}")
+    for hist, it in (([dict(iter=3, shard_ne=[1000, 100],
+                            shard_active=[0.0, 0.5])], 3),
+                     ([dict(iter=3, shard_ne=[1000, 100],
+                            shard_active=[0.0, 0.0])], 3),
+                     ([rows(4, [10, 20]), rows(4, [30, 40])], 4),
+                     ([rows(4, [10, 20])], 5)):
+        table.append(str(work_fn(hist, it)))
+    return np.asarray(table)
+
+
+def _jax_policy(out):
+    from parmmg_tpu.parallel import migrate
+
+    out["policy"] = _policy_matrix(migrate.BalancePolicy,
+                                   migrate.measured_shard_work)
 
 
 def _jax_adapt(out, case):
@@ -139,7 +278,7 @@ def _jax_adapt(out, case):
 
     mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
     kw = _case_options(case)
-    if case == "graded":
+    if case != "hsiz":
         mesh = mesh.replace(met=jnp.asarray(_graded(np.asarray(mesh.vert))),
                             met_set=True)
     st, comm, info = adapt_distributed(mesh, DistOptions(**kw))
@@ -165,23 +304,40 @@ def jax_dist(*parts) -> dict:
     return out
 
 
+# the JAX side's child processes: the balanced run follows the graded
+# one in its process, whose first iteration has the same shapes (the
+# compiled programs are reused)
+GROUPS = (("hsiz",), ("graded", "balanced"), ("distribute",))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """ref(part): one part of the JAX side. The children start when the
-    fixture is set up (two processes, so the port's runs overlap them)
-    and are waited for when a test first asks for a part."""
-    wait = start_jax_side(__file__, "jax_dist",
-                          tmp_path_factory.mktemp("jdist"),
-                          ("hsiz", "distribute"), ("graded",), xla_flags=O0)
-    full = {}
+    """ref(part): one part of the JAX side, computed in the child process
+    of its group (`GROUPS`). `ref.start(*parts)` starts the children of
+    `parts` ahead of their use (so the port's runs overlap them);
+    `ref(part)` starts its child if that has not been done and waits for
+    it. Only the parts a worker's tests ask for run there."""
+    waits, got = {}, {}
+
+    def start(*parts):
+        for group in GROUPS:
+            if set(group) & set(parts) and group not in waits:
+                waits[group] = start_jax_side(
+                    __file__, "jax_dist",
+                    tmp_path_factory.mktemp("jdist"), group, xla_flags=O0)
 
     def get(part):
-        if not full:
-            full.update(wait())
-        n = len(part) + 1
-        return {k[n:]: v for k, v in full.items()
-                if k.startswith(part + ":")}
+        start(part)
+        group = next(g for g in GROUPS if part in g)
+        if part not in got:
+            full = waits[group]()
+            for p in group:
+                n = len(p) + 1
+                got[p] = {k[n:]: v for k, v in full.items()
+                          if k.startswith(p + ":")}
+        return got[part]
 
+    get.start = start
     return get
 
 
@@ -237,17 +393,19 @@ def _assert_comm(comm, ref: dict, key: str):
 
 
 @pytest.fixture(scope="module")
-def torch_runs():
-    """The port's runs of both cases (CPU, f64)."""
+def torch_runs(ref):
+    """The port's runs of every case (CPU, f64), while the JAX side's
+    runs of the same cases go on in their child processes."""
+    ref.start(*CASES)
     runs = {}
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        for case in ("hsiz", "graded"):
+        for case in CASES:
             mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64,
                                         device="cpu")
             kw = _case_options(case)
-            if case == "graded":
+            if case != "hsiz":
                 mesh = mesh.replace(met=_graded(mesh.vert), met_set=True)
             runs[case] = t_dist.adapt_distributed(
                 mesh, t_dist.DistOptions(**kw), device="cpu")
@@ -257,8 +415,9 @@ def torch_runs():
 
 
 def test_adapt_distributed_equals_live_jax(ref, torch_runs):
-    """Both cases (hsiz 0.18, graded size) against the live JAX runs."""
-    for case in ("hsiz", "graded"):
+    """Every case (hsiz 0.18 and graded size with -nobalance, graded size
+    balanced) against the live JAX runs."""
+    for case in CASES:
         _check_case(ref(case), torch_runs[case], case)
 
 
@@ -291,10 +450,19 @@ def _check_case(r, run, case):
     merged = t_dist.merge_adapted(st, comm)
     _assert_leaves(merged, r, "merged", rtol=RTOL, tet_order=False)
     assert conformity.check_mesh(merged).ok
-    if case == "graded":
+    if case != "hsiz":
         # interpolation moved values: the graded sizes are not constant
         met = merged.met[merged.vmask, 0]
         assert float(met.max() - met.min()) > 0.1
+    bal = info["balance"]
+    if case != "balanced":
+        assert bal == []
+        return
+    # iteration 0 displaced the interfaces and moved cells, the last
+    # iteration took the graph cut
+    assert [(b["it"], b["trigger"]) for b in bal] == [
+        (0, "displacement"), (1, "graph")]
+    assert all(b["cells"] > 0 for b in bal)
 
 
 def test_partition_split_and_merge_match_jax(ref):
@@ -323,6 +491,10 @@ def test_partition_split_and_merge_match_jax(ref):
     _assert_leaves(merged, r, "merged")
     assert conformity.check_mesh(merged).ok
     _check_prefix_sum(r)
+    _check_balance(r)
+    np.testing.assert_array_equal(
+        _policy_matrix(t_mig.BalancePolicy, t_mig.measured_shard_work),
+        r["policy"])
 
 
 def _check_prefix_sum(r):
@@ -336,6 +508,64 @@ def _check_prefix_sum(r):
         np.testing.assert_array_equal(got, r[f"cs{n}/out"], err_msg=n)
         seq_differs |= bool((np.cumsum(x, dtype=np.float32) != got).any())
     assert seq_differs
+
+
+def _check_balance(r):
+    """The balancing modules on the JAX side's stacked state: colors,
+    contiguity repair, counts, migration, compaction, retagging and the
+    node tables, the capacity errors, the frontier's gid keys and the
+    full re-cut, all equal."""
+    st = _mesh(r, "bal/in")
+    comm = t_distr.rebuild_comm(st)
+    disp = t_mig.displace_colors(st, comm, 4, round_id=0, layers=2)
+    np.testing.assert_array_equal(disp.numpy(), r["bal/displace"])
+    graph = t_part.stacked_graph_colors(st, 4)
+    np.testing.assert_array_equal(graph.numpy(), r["bal/graph"])
+    # both colorings move cells; the islands are reattached
+    assert (disp.numpy() != np.arange(4)[:, None])[st.tmask.numpy()].any()
+    color = t_mig.fix_contiguity(st, disp, 4)
+    np.testing.assert_array_equal(color.numpy(), r["bal/fixed"])
+    noisy = _islands(graph.numpy(), st.tmask.numpy())
+    fixed = t_mig.fix_contiguity(st, torch.as_tensor(noisy), 4).numpy()
+    np.testing.assert_array_equal(fixed, r["bal/fixed_noisy"])
+    assert (fixed != noisy).any()
+    cnts = t_mig.migration_counts(st, color, 4)
+    np.testing.assert_array_equal(cnts.numpy(), r["bal/counts"])
+    assert int(cnts.sum()) > 0
+    np.testing.assert_array_equal(
+        t_mig.migrating_vertices(st, color).numpy(), r["bal/migrating"])
+    keys = t_mig.frontier_gid_keys(st, torch.as_tensor(r["bal/chg"]))
+    np.testing.assert_array_equal(keys.numpy(), r["bal/keys"])
+    tight = t_mig.migration_counts(st, graph, 4)
+    if "bal/tight_overflow" in r:
+        with pytest.raises(t_adapt.CapacityError) as e:
+            t_mig.migrate(st, graph, 4, int(tight.max()) + 8)
+        np.testing.assert_array_equal(e.value.overflow,
+                                      r["bal/tight_overflow"])
+    else:
+        _assert_leaves(t_mig.migrate(st, graph, 4, int(tight.max()) + 8),
+                       r, "bal/tight")
+    st2, color = t_dist._grow(st, color, **_grown_caps(st))
+    with pytest.raises(t_adapt.CapacityError) as e:
+        t_mig.migrate(st2, color, 4, 1)
+    np.testing.assert_array_equal(e.value.counts, r["bal/cap_counts"])
+    np.testing.assert_array_equal(e.value.caps, r["bal/cap_caps"])
+    moved = t_mig.migrate(st2, color, 4, int(cnts.max()) + 8)
+    _assert_leaves(moved, r, "bal/moved")
+    st3, comm3 = t_mig.retag_interfaces(t_distr.stack_meshes(
+        [t_dist.compact(m) for m in t_distr.unstack_mesh(moved)]))
+    _assert_leaves(st3, r, "bal/retag")
+    _assert_comm(comm3, r, "bal/comm3")
+    decoded = t_mig.frontier_from_gid_keys(st3, keys)
+    np.testing.assert_array_equal(decoded.numpy(), r["bal/decoded"])
+    # exact: a vertex is active on its (new) owner iff its gid was encoded
+    g3, vm3 = st3.vglob.numpy(), st3.vmask.numpy()
+    want = np.zeros_like(vm3)
+    want[vm3] = np.isin(g3[vm3], st.vglob.numpy()[r["bal/chg"]])
+    np.testing.assert_array_equal(decoded.numpy(), want)
+    st4, comm4 = t_dist._rebalance_full(st3, comm3, 4)
+    _assert_leaves(st4, r, "bal/full")
+    _assert_comm(comm4, r, "bal/comm4")
 
 
 def _check_snapshot_untouched():
@@ -363,8 +593,9 @@ def _check_snapshot_untouched():
 
 
 def _check_cli_round_trip(tmp_path):
-    """`-nparts 4 -nobalance` through the CLI on the CPU: the merged
-    mesh it writes is conforming and equals the API's merged mesh."""
+    """`-nparts 4 -nobalance`, then `-nparts 4 -balance 1.2 -nlayers 2`,
+    through the CLI on the CPU: the merged mesh each writes is conforming
+    and equals the API's merged mesh on the same options."""
     raw = t_gen.unit_cube(4)
     src = str(tmp_path / "cube4.mesh")
     t_medit.save_mesh(Mesh.from_numpy(
@@ -385,11 +616,23 @@ def _check_cli_round_trip(tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     np.testing.assert_array_equal(a["verts"], b["verts"])
     assert len(a["tets"]) != 6 * 4 ** 3
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_dist.adapt_distributed(t_medit.load_mesh(src, device="cpu"),
-                                 dataclasses.replace(opts,
-                                                     nobalancing=False),
-                                 device="cpu")
+    # balanced: the CLI's defaults (-groups-ratio 2.0) and the flags given
+    bal = ["-nparts", "4", "-balance", "1.2", "-nlayers", "2"]
+    assert t_cli.main([src, "-hsiz", "0.3", "-niter", "2", "-v", "0",
+                       "-mesh-size", "16", "-out", out] + bal,
+                      device="cpu") == 0
+    got = t_medit.load_mesh(out, device="cpu")
+    assert conformity.check_mesh(got).ok
+    st, comm, info = t_dist.adapt_distributed(
+        t_medit.load_mesh(src, device="cpu"),
+        dataclasses.replace(opts, niter=2, nobalancing=False,
+                            balance_band=1.2, ifc_layers=2,
+                            grps_ratio=2.0), device="cpu")
+    assert info["balance"] and info["balance"][-1]["trigger"] == "graph"
+    a, b = got.to_numpy(), t_dist.merge_adapted(st, comm).to_numpy()
+    for k in ("tets", "trias", "trrefs", "edges"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(a["verts"], b["verts"])
 
 
 def _check_rollback_classes(monkeypatch):
@@ -427,11 +670,35 @@ def _check_rollback_classes(monkeypatch):
         assert int(good[0].tmask.sum()) != 6 * 3 ** 3
 
 
+def _check_refusals(tmp_path, monkeypatch):
+    """What the balancing slice leaves out stays refused, naming its
+    ROADMAP item: the communicator checks, and a balance band derived
+    from a PERF_DB; a band given or in the environment is taken."""
+    mesh = t_gen.unit_cube_mesh(3, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        t_dist.adapt_distributed(mesh, t_dist.DistOptions(
+            nparts=2, check_comm=True), device="cpu")
+    db = tmp_path / "perf_db.jsonl"
+    db.write_text("")
+    opts = t_dist.DistOptions(nparts=2)
+    monkeypatch.delenv("PMMGTPU_BALANCE_BAND", raising=False)
+    assert t_mig.resolve_balance_band(opts) == 1.5
+    monkeypatch.setenv("PMMGTPU_PERF_DB", str(db))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        t_mig.resolve_balance_band(opts)
+    assert t_mig.resolve_balance_band(
+        dataclasses.replace(opts, balance_band=2.25)) == 2.25
+    monkeypatch.setenv("PMMGTPU_BALANCE_BAND", "0")
+    assert t_mig.resolve_balance_band(opts) is None
+
+
 def test_snapshot_and_cli(tmp_path, monkeypatch):
     """The interpolation snapshot survives a remesh phase unchanged,
-    `-nparts 4 -nobalance` runs through the CLI, and the rollback
-    absorbs the failures the JAX driver absorbs but no kernel failure
-    (see the checks above)."""
+    `-nparts 4` runs through the CLI with and without balancing, and the
+    rollback absorbs the failures the JAX driver absorbs but no kernel
+    failure; what the slice leaves out is refused (see the checks
+    above)."""
     _check_snapshot_untouched()
     _check_cli_round_trip(tmp_path)
     _check_rollback_classes(monkeypatch)
+    _check_refusals(tmp_path, monkeypatch)
