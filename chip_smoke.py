@@ -28,6 +28,17 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    CLI with `-nofrontier` (full-table sweeps), counters read likewise,
    which must give the full-table mesh of earlier slices bit for bit
    (its element count, qmin and unit-band share);
+   Then the rung once more with `-field`, a (1, 3) field linear in
+   the coordinates, which must give the field-less mesh bit for bit and
+   its launches, and write `<out>.fields.sol` with the linear functions
+   at the output vertices (within FIELD_TOL).
+2d. level-set path: ls = |p - (0.5, 0.5, 0.5)| - 0.3 as the -sol of
+   `-ls -hsiz 0.04 -niter 1 -hgrad 0 -out ls.vtu` on the same cube,
+   counters read likewise; the .vtu, reloaded with `load_vtu`, must be
+   conforming with qmin > 0, an element count in a window around the
+   JAX package's for the same command on a CPU, ref-10 isosurface
+   trias, an `ls` PointData array and the ref-3 volume of the
+   discretized input (within LS_VOL_TOL);
 2c. distributed path: the same cube with the graded iso size
    h = 0.025 + 0.05 x written as a .sol, through the CLI with `-nparts 4`
    (f32, niter 3, hgrad 1.3, -ar 45; frontier sweeps; balancing between
@@ -41,8 +52,9 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    element count in a window around the JAX package's count for the same
    command on a CPU; launches printed as in 2; then the same with
    `-nobalance` (frozen interfaces), with frontier and with full-table
-   sweeps, which must give the element count of earlier slices; at the
-   end of the script, `adapt_distributed()` with the balanced options
+   sweeps, which must give the element count of earlier slices; the
+   balanced run once more with `-field`, as in 2; at the end of the
+   script, `adapt_distributed()` with the balanced options
    again under torch.profiler, which must give the balanced CLI's mesh
    bit for bit;
 3. every kernel against its plain PyTorch version on the card, at the
@@ -67,8 +79,11 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    same estimator;
 4. small f64 adaptations on the card against the same runs on the CPU,
    centralized and distributed (-nobalance), with frontier and with
-   full-table sweeps, and distributed balanced with frontier sweeps: the
-   per-sweep histories (and the rebalancings) must be equal; on the card,
+   full-table sweeps, distributed balanced with frontier sweeps and the
+   linear field, and centralized on a level-set-discretized cube with
+   the field: the per-sweep histories (and the rebalancings) must be
+   equal, the balanced one also to its field-less run's, ls and fields
+   within RTOL; on the card,
    the device-to-host reads inside the sweep loops are counted (torch's
    sync debug mode);
 5. a `{"kernels": [...]}` line, the card line, and as the last line
@@ -132,6 +147,28 @@ DIST_NOBALANCE_NE = 149_267
 
 # float agreement band of tests/test_m18_kernels.py `_rtol`
 RTOL = {"float32": 5e-6, "float64": 5e-11}
+
+# the fields runs: the centralized rung and the balanced distributed
+# workload once more with `-field`, a (1, 3) field linear in the
+# coordinates (`linear_fields`). Fields enter no decision, so each run
+# must give its field-less mesh and launches. The largest deviation from
+# the linear functions at the output vertices must stay within these
+# bounds, set from the same commands on a CPU (PERF.md): centralized,
+# the f32 rounding of the P1 pull, 1.8e-6 in the JAX package's CLI and
+# 3.8e-6 in the port's; distributed, where the surface path takes each
+# boundary vertex's value from its nearest old tria, which need not hold
+# it (in both packages; ROADMAP queue 3), 0.125 in the JAX package's
+# CLI and 0.153 in the port's
+FIELD_TOL = {"centralized": 2e-5, "distributed": 0.5}
+# the level-set run: ls = |p - (0.5, 0.5, 0.5)| - LS_R on the cube as
+# the -sol of `-ls -hsiz 0.04 -niter 1 -hgrad 0`, written as .vtu; the
+# window is about 15 % either side of the JAX package's CLI on a CPU for
+# this command (182,798 tets), and the ref-3 (inside) volume must stay
+# within LS_VOL_TOL of the discretized input's 0.108760: it moved by
+# 1.32e-4 in that JAX run and 1.82e-4 in the port's on a CPU (PERF.md)
+LS_R = 0.3
+LS_NE_RANGE = (155_000, 210_000)
+LS_VOL_TOL = 5e-4
 
 REPLACES = {
     "quality_vol": "parmmg_tpu/kernels/quality_k.py:120",
@@ -550,13 +587,76 @@ def launch_report(label: str) -> None:
     print(f"## {label} launches: " + ", ".join(parts))
 
 
-def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None):
+def linear_fields(v):
+    """The (1, 3) field of the fields runs at the points `v`: 1 + x + 2y
+    + 3z and (y, z, x)."""
+    import numpy as np
+
+    return np.stack([1 + v[:, 0] + 2 * v[:, 1] + 3 * v[:, 2],
+                     v[:, 1], v[:, 2], v[:, 0]], axis=1)
+
+
+def write_field_sol(work: str, verts) -> list:
+    """Write the linear field at `verts` as `work`/f.sol; returns the CLI
+    flags that carry it."""
+    from parmmg_tpu_torch.io import medit
+
+    fsol = os.path.join(work, "f.sol")
+    medit.save_sol(fsol, linear_fields(verts), [medit.SOL_SCALAR,
+                                                medit.SOL_VECTOR])
+    return ["-field", fsol]
+
+
+def check_fields_file(out: str, label: str) -> float:
+    """The `<out>.fields.sol` a `-field` run wrote next to the Medit mesh
+    `out` must hold the linear functions at the output vertices within
+    FIELD_TOL[`label`]. Runs on the host (it also checks CPU runs of
+    either package). Returns the largest deviation."""
+    from parmmg_tpu_torch.io import medit
+
+    vals, ncomp = medit.load_fields(os.path.splitext(out)[0] + ".fields.sol")
+    v = medit.read_mesh(out).verts
+    require(ncomp == (1, 3) and vals.shape == (len(v), 4),
+            f"{label} -field: fields file of shape {vals.shape}, "
+            f"ncomp {ncomp}")
+    dev = abs(vals - linear_fields(v)).max(axis=1)
+    err = float(dev.max())
+    print(f"## {label} -field: {len(v)} vertices, largest deviation from "
+          f"the linear field {err:.3g} (bound {FIELD_TOL[label]:.3g}), "
+          f"{int((dev > 1e-5).sum())} vertices off by more than 1e-5")
+    require(err <= FIELD_TOL[label], f"{label} -field: deviation {err} "
+            f"from the linear field above {FIELD_TOL[label]}")
+    return err
+
+
+def require_same_mesh(a, b, what: str) -> None:
+    """Meshes `a` and `b` equal entity for entity, bit for bit."""
+    a, b = a.to_numpy(), b.to_numpy()
+    for k in ("verts", "tets", "trias", "met"):
+        require(a[k].shape == b[k].shape
+                and bool((a[k].astype(b[k].dtype) == b[k]).all()),
+                f"{what} ({k})")
+
+
+def same_run(m, launches, label: str, m_f, launches_f) -> None:
+    """The `-field` run of a path (`m_f`, `launches_f`) gave the
+    field-less run's mesh bit for bit and its launches."""
+    require_same_mesh(m_f, m, f"{label} -field: the mesh differs from the "
+                      "field-less run's")
+    require(launches_f == launches, f"{label} -field: launches "
+            f"{launches_f}, the field-less run's {launches}")
+    print(f"## {label} -field: the field-less run's mesh ({int(m.ntet)} "
+          f"tets) bit for bit and its launches {launches}")
+
+
+def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None,
+              fields=False):
     """Phase 2: the port's CLI on the unit cube n^3 (with the `extra`
-    flags), launch counters set to 0 just before and read just after.
-    The element count must fall in `ne_range`, or with `expect` =
-    (tets, qmin, in_band) the mesh must give those numbers. Returns
-    (output mesh on the card, launches, shapes of each kernel's last
-    launch)."""
+    flags, and with `fields` the linear field as `-field`), launch
+    counters set to 0 just before and read just after. The element count
+    must fall in `ne_range`, or with `expect` = (tets, qmin, in_band) the
+    mesh must give those numbers. Returns (output mesh on the card,
+    launches, shapes of each kernel's last launch)."""
     import torch
 
     from parmmg_tpu_torch import __main__ as cli
@@ -566,7 +666,8 @@ def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None):
     from parmmg_tpu_torch.ops import quality
     from parmmg_tpu_torch.utils import conformity, gen
 
-    label = "main path" + "".join(f" {x}" for x in extra)
+    label = "main path" + "".join(f" {x}" for x in extra) + (
+        " -field" if fields else "")
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         cube = os.path.join(work, f"cube{n}.mesh")
         out = os.path.join(work, "out.mesh")
@@ -577,6 +678,8 @@ def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None):
                         cube)
         argv = [cube, "-hsiz", str(hsiz), "-niter", "1", "-hgrad", "0",
                 "-out", out, *extra]
+        if fields:
+            argv += write_field_sol(work, raw["verts"])
         print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
               flush=True)
         kernels.reset_launches()
@@ -591,6 +694,8 @@ def main_path(n: int, hsiz: float, ne_range, extra=(), expect=None):
         launch_report(label)
         require(rc == 0, f"CLI exited {rc}")
         m = medit.load_mesh(out, medit.met_filename(out), device="cuda")
+        if fields:
+            check_fields_file(out, "centralized")
     # a wrapper launches its kernel only for CUDA tensors: every counter
     # above 0 shows the main path's mesh lived on the card
     for name in CENTRAL:
@@ -646,13 +751,10 @@ def profile_main_path(n: int, hsiz: float, cli_out) -> None:
         out, _ = adapt(mesh, opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    a, b = out.to_numpy(), cli_out.to_numpy()
-    for k in ("verts", "tets", "trias", "met"):
-        require(a[k].shape == b[k].shape
-                and bool((a[k].astype(b[k].dtype) == b[k]).all()),
-                f"the repeated adaptation differs from the CLI's ({k})")
+    require_same_mesh(out, cli_out,
+                      "the repeated adaptation differs from the CLI's")
     print(f"## repeat: adapt() under torch.profiler gave the CLI's mesh "
-          f"({len(a['tets'])} tets) bit for bit")
+          f"({int(out.ntet)} tets) bit for bit")
     _device_profile(prof, wall, "adapt under torch.profiler")
 
 
@@ -700,10 +802,11 @@ def write_graded_cube(work: str, n: int):
     return cube, sol
 
 
-def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
+def distributed_path(n: int, ne_range, extra=(), expect_ne=None,
+                     fields=False):
     """Phase 2c: the port's CLI with `-nparts NPARTS` (and the `extra`
-    flags) on the graded cube, launch counters set to 0 just before and
-    read just after. The element count must fall in `ne_range`, or equal
+    flags, and with `fields` the linear field as `-field`) on the graded
+    cube, launch counters set to 0 just before and read just after. The element count must fall in `ne_range`, or equal
     `expect_ne`. Without -nobalance, some iteration must move cells and
     the last one take the graph cut. Returns (merged output mesh on the
     card, launches, shapes)."""
@@ -715,12 +818,15 @@ def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
     from parmmg_tpu_torch.ops import quality
     from parmmg_tpu_torch.utils import conformity
 
-    label = "distributed path" + "".join(f" {x}" for x in extra)
+    label = "distributed path" + "".join(f" {x}" for x in extra) + (
+        " -field" if fields else "")
     with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
         cube, sol = write_graded_cube(work, n)
         out = os.path.join(work, "dist.mesh")
         argv = [cube, "-sol", sol, "-nparts", str(NPARTS),
                 "-niter", str(NITER), "-out", out, *extra]
+        if fields:
+            argv += write_field_sol(work, medit.read_mesh(cube).verts)
         print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
               flush=True)
         kernels.reset_launches()
@@ -735,6 +841,8 @@ def distributed_path(n: int, ne_range, extra=(), expect_ne=None):
         launch_report(label)
         require(rc == 0, f"CLI exited {rc}")
         m = medit.load_mesh(out, medit.met_filename(out), device="cuda")
+        if fields:
+            check_fields_file(out, "distributed")
     check_rollbacks([ln for ln in buf.getvalue().splitlines()
                      if "rolled back" in ln], f"the {label} CLI")
     check_rebalancing(buf.getvalue(), label, "-nobalance" not in extra)
@@ -826,17 +934,15 @@ def profile_distributed_path(n: int, cli_out) -> None:
         st, comm, info = adapt_distributed(mesh, opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    a, b = merge_adapted(st, comm).to_numpy(), cli_out.to_numpy()
-    for k in ("verts", "tets", "trias", "met"):
-        require(a[k].shape == b[k].shape
-                and bool((a[k].astype(b[k].dtype) == b[k]).all()),
-                f"the repeated distributed run differs from the CLI's ({k})")
+    merged = merge_adapted(st, comm)
+    require_same_mesh(merged, cli_out, "the repeated distributed run "
+                      "differs from the CLI's")
     fails = [r for r in info["history"] if "failure" in r]
     check_rollbacks([f"({r['error']}): {r['failure']}" for r in fails],
                     "the profiled distributed run")
     sweeps = [r for r in info["history"] if "failure" not in r]
     print(f"## repeat: adapt_distributed() under torch.profiler gave the "
-          f"CLI's mesh ({len(a['tets'])} tets) bit for bit; status "
+          f"CLI's mesh ({int(merged.ntet)} tets) bit for bit; status "
           f"{int(info['status'])}, {len(sweeps)} sweeps, last shard_ne "
           f"{sweeps[-1]['shard_ne']}"
           + "".join(f"; it {r['iter']}: {r['error']}: {r['failure']}"
@@ -845,6 +951,116 @@ def profile_distributed_path(n: int, cli_out) -> None:
                     f"{b['cells']} cells, {b['wall_s']} s)"
                     for b in info["balance"]))
     _device_profile(prof, wall, "adapt_distributed under torch.profiler")
+
+
+def levelset_path(n: int, hsiz: float) -> None:
+    """Phase 2d: the level-set run. ls = |p - (0.5, 0.5, 0.5)| - LS_R,
+    written as a .sol on the unit cube n^3, through the port's CLI with
+    `-ls -sol sphere.sol -hsiz hsiz -niter 1 -hgrad 0 -out ls.vtu`,
+    launch counters set to 0 just before and read just after; then
+    `check_levelset_output`."""
+    import numpy as np
+    import torch
+
+    from parmmg_tpu_torch import __main__ as cli
+    from parmmg_tpu_torch import kernels
+    from parmmg_tpu_torch.core.mesh import Mesh
+    from parmmg_tpu_torch.io import medit
+    from parmmg_tpu_torch.utils import gen
+
+    label = "level-set path"
+    with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
+        raw = gen.unit_cube(n)
+        cube = os.path.join(work, f"cube{n}.mesh")
+        sol = os.path.join(work, "sphere.sol")
+        out = os.path.join(work, "ls.vtu")
+        medit.save_mesh(Mesh.from_numpy(raw["verts"], raw["tets"],
+                                        trias=raw["trias"],
+                                        trrefs=raw["trrefs"], device="cpu"),
+                        cube)
+        ls = np.linalg.norm(raw["verts"] - 0.5, axis=1) - LS_R
+        medit.save_sol(sol, ls[:, None], [medit.SOL_SCALAR])
+        argv = [cube, "-ls", "-sol", sol, "-hsiz", str(hsiz), "-niter", "1",
+                "-hgrad", "0", "-out", out]
+        print(f"## {label}: python -m parmmg_tpu_torch {' '.join(argv)}",
+              flush=True)
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        print(buf.getvalue())
+        launch_report(label)
+        require(rc == 0, f"CLI exited {rc}")
+        for name in CENTRAL:
+            require(launches[name] > 0, f"kernel {name} never launched on "
+                    f"the {label}")
+        print(f"## {label}: wall {wall:.3f} s, phases " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in phase_times(buf.getvalue()).items()))
+        check_levelset_output(cube, sol, out, "cuda", label)
+
+
+def check_levelset_output(cube: str, sol: str, out: str, device: str,
+                          label: str) -> None:
+    """The `.vtu` a `-ls -sol sol` run on the mesh `cube` wrote, reloaded
+    with `load_vtu` on `device`, must be conforming with qmin > 0 and an
+    element count in LS_NE_RANGE, carry ref-10 (isosurface) trias and an
+    `ls` PointData array, and keep the ref-3 (inside) volume within
+    LS_VOL_TOL of the discretized input's. Also checks CPU runs of
+    either package (`device="cpu"`)."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+
+    from parmmg_tpu_torch.io import medit, vtk
+    from parmmg_tpu_torch.models.levelset import (REF_IN, REF_ISO,
+                                                  discretize_levelset)
+    from parmmg_tpu_torch.ops import quality
+    from parmmg_tpu_torch.utils import conformity
+
+    m = vtk.load_vtu(out, device=device)
+    piece = ET.parse(out).getroot().find(".//Piece")
+    names = [da.get("Name")
+             for da in piece.find("PointData").iter("DataArray")]
+    crefs = np.array(piece.find("CellData").find("DataArray").text.split(),
+                     np.int64)
+    # the discretized input, on the host from the files the CLI read
+    d_in = discretize_levelset(medit.raw_to_mesh(
+        medit.read_mesh(cube), ls=medit.read_sol(sol)[0][:, :1],
+        dtype=torch.float64, device="cpu")).to_numpy()
+    rep = conformity.check_mesh(m)
+    require(rep.ok, f"{label}: output not conforming: {rep}")
+    h = quality.quality_histogram(m)
+    ne, qmin = int(h.ne), float(h.qmin)
+    require(qmin > 0, f"{label}: qmin {qmin} <= 0")
+    require(LS_NE_RANGE[0] <= ne <= LS_NE_RANGE[1],
+            f"{label}: ne {ne} outside {LS_NE_RANGE}")
+    d = m.to_numpy()
+    trefs, trrefs = crefs[:len(d["tets"])], crefs[len(d["tets"]):]
+    niso = int((trrefs == REF_ISO).sum())
+    require(niso > 0, f"{label}: no ref-{REF_ISO} (isosurface) trias")
+    require("ls" in names, f"{label}: no ls PointData array ({names})")
+
+    def volume(verts, tets):
+        c = verts.astype(np.float64)[tets]
+        return float(np.einsum("ti,ti->t", np.cross(c[:, 1] - c[:, 0],
+                                                    c[:, 2] - c[:, 0]),
+                               c[:, 3] - c[:, 0]).sum() / 6.0)
+
+    v_in = volume(d_in["verts"], d_in["tets"][d_in["trefs"] == REF_IN])
+    v_out = volume(d["verts"], d["tets"][trefs == REF_IN])
+    print(f"## {label}: ne {ne} np {int(m.npoin)} qmin {qmin:.6f} "
+          f"qavg {float(h.qavg):.6f} conforming; {niso} ref-{REF_ISO} "
+          f"trias; ref-{REF_IN} volume {v_out:.6f} against the discretized "
+          f"input's {v_in:.6f} (|difference| {abs(v_out - v_in):.3g}, "
+          f"bound {LS_VOL_TOL:.3g}); PointData {names}")
+    require(abs(v_out - v_in) <= LS_VOL_TOL,
+            f"{label}: ref-{REF_IN} volume {v_out} differs from the input's "
+            f"{v_in} by more than {LS_VOL_TOL}")
 
 
 def stream_fixture(m, N: int, P: int, dt, hsiz: float):
@@ -1100,36 +1316,67 @@ def counting_reads(on: bool):
 def small_f64_runs() -> None:
     """Phase 4: unit cube n=4 at f64 on the card and on the CPU, through
     `adapt()` and through `adapt_distributed()` on 2 shards with
-    -nobalance, each with frontier and with full-table sweeps, and
-    balanced with frontier sweeps: the per-sweep histories (with the
-    rebalancings) must be equal."""
+    -nobalance, each with frontier and with full-table sweeps, balanced
+    with frontier sweeps carrying the linear field, and `adapt()` of the
+    cube split along a sphere (`discretize_levelset`) carrying the
+    linear field: the per-sweep histories (with the rebalancings) must
+    be equal, the balanced one also to a field-less CPU run's, and the
+    level-set run's ls and fields within RTOL of the CPU's."""
+    import numpy as np
     import torch
 
+    from parmmg_tpu_torch.core.mesh import Mesh
     from parmmg_tpu_torch.models.adapt import AdaptOptions, adapt
     from parmmg_tpu_torch.models.distributed import (
         DistOptions, adapt_distributed, merge_adapted)
+    from parmmg_tpu_torch.models.levelset import discretize_levelset
     from parmmg_tpu_torch.utils import conformity, gen
+
+    def cube(d, field=False):
+        m = gen.unit_cube_mesh(4, dtype=torch.float64, device=d)
+        if not field:
+            return m
+        return m.replace(fields=torch.as_tensor(
+            linear_fields(m.vert.cpu().numpy()), device=d),
+            field_ncomp=(1, 3))
+
+    def sphere(d):
+        raw = gen.unit_cube(4)
+        v = raw["verts"]
+        return discretize_levelset(Mesh.from_numpy(
+            v, raw["tets"], trias=raw["trias"], trrefs=raw["trrefs"],
+            ls=(np.linalg.norm(v - 0.5, axis=1) - LS_R)[:, None],
+            fields=linear_fields(v), field_ncomp=(1, 3),
+            dtype=torch.float64, device=d))
 
     runs = {}
     for fr in (True, False):
         sweeps = "frontier" if fr else "full-table"
-        runs[f"centralized {sweeps}"] = lambda m, d, fr=fr: adapt(
+        runs[f"centralized {sweeps}"] = cube, lambda m, d, fr=fr: adapt(
             m, AdaptOptions(hsiz=0.18, niter=1, max_sweeps=6, hgrad=None,
                             frontier=fr), device=d)
-        runs[f"distributed {sweeps}"] = lambda m, d, fr=fr: \
+        runs[f"distributed {sweeps}"] = cube, lambda m, d, fr=fr: \
             adapt_distributed(m, DistOptions(
                 hsiz=0.18, niter=2, max_sweeps=6, hgrad=None, nparts=2,
                 nobalancing=True, min_shard_elts=16, frontier=fr), device=d)
-    runs["distributed balanced"] = lambda m, d: adapt_distributed(
-        m, DistOptions(hsiz=0.18, niter=2, max_sweeps=6, hgrad=None,
-                       nparts=2, min_shard_elts=16), device=d)
+
+    def balanced(m, d):
+        return adapt_distributed(m, DistOptions(
+            hsiz=0.18, niter=2, max_sweeps=6, hgrad=None, nparts=2,
+            min_shard_elts=16), device=d)
+
+    runs["distributed balanced -field"] = (
+        lambda d: cube(d, field=True), balanced)
+    runs["centralized -ls -field"] = sphere, lambda m, d: adapt(
+        m, AdaptOptions(hsiz=0.2, niter=1, max_sweeps=6, hgrad=None),
+        device=d)
     threads = torch.get_num_threads()
-    for label, run in runs.items():
-        hist = {}
+    for label, (make, run) in runs.items():
+        hist, sols = {}, {}
         for d in ("cuda", "cpu"):
             # one host thread: at these sizes more only add synchronisation
             torch.set_num_threads(1 if d == "cpu" else threads)
-            mesh = gen.unit_cube_mesh(4, dtype=torch.float64, device=d)
+            mesh = make(d)
             with warnings.catch_warnings(record=True) as caught:
                 # every device-to-host read of the sweep loops, as warnings
                 warnings.simplefilter("always")
@@ -1139,6 +1386,7 @@ def small_f64_runs() -> None:
             require(conformity.check_mesh(mm).ok,
                     f"f64 {label} run on {d} not conforming")
             hist[d] = _history(out[-1])
+            sols[d] = torch.cat([mm.ls, mm.fields], 1)[mm.vmask].cpu()
             print(f"## f64 n=4 {label} on {d}: ne {int(mm.ntet)} status "
                   f"{int(out[-1]['status'])} history {hist[d]}")
             if d == "cuda":
@@ -1151,6 +1399,21 @@ def small_f64_runs() -> None:
         require(hist["cuda"] == hist["cpu"],
                 f"f64 {label} run: the card's per-sweep history differs "
                 f"from the CPU's (first at sweep record {first})")
+        if "-field" not in label:
+            continue
+        a, b = sols["cuda"], sols["cpu"]
+        require(a.shape == b.shape and a.shape[1] > 0 and bool(
+            ((a - b).abs() <= RTOL["float64"] * b.abs().clamp(min=1)).all()),
+                f"f64 {label} run: the card's ls/fields differ from the "
+                f"CPU's beyond {RTOL['float64']}")
+        if label.startswith("distributed balanced"):
+            # the field enters no decision: the same run without it, on
+            # the CPU, has the same history
+            torch.set_num_threads(1)
+            require(_history(balanced(cube("cpu"), "cpu")[-1])
+                    == hist["cpu"], f"f64 {label} run: the history "
+                    "differs from the field-less run's")
+            print(f"## f64 n=4 {label}: the field-less run's history")
     torch.set_num_threads(threads)
 
 
@@ -1168,11 +1431,16 @@ def main() -> int:
     build_kernels()
     t0 = time.perf_counter()
     m, launches, shapes = main_path(CUBE_N, HSIZ, NE_RANGE)
+    same_run(m, launches, "main path",
+             *main_path(CUBE_N, HSIZ, NE_RANGE, fields=True)[:2])
     profile_main_path(CUBE_N, HSIZ, m)
     main_path(CUBE_N, HSIZ, NE_RANGE, extra=("-nofrontier",),
               expect=NOFRONTIER_MESH)
+    levelset_path(CUBE_N, HSIZ)
     print(f"## phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
     m_d, launches_d, shapes_d = distributed_path(CUBE_N, DIST_NE_RANGE)
+    same_run(m_d, launches_d, "distributed path",
+             *distributed_path(CUBE_N, DIST_NE_RANGE, fields=True)[:2])
     for extra in (("-nobalance",), ("-nobalance", "-nofrontier")):
         distributed_path(CUBE_N, DIST_NE_RANGE, extra=extra,
                          expect_ne=DIST_NOBALANCE_NE)

@@ -9,10 +9,13 @@ adapts on N stacked shards, rebalancing between iterations (interface
 displacement, `-nlayers`; the graph cut on the last iteration; a full
 re-cut past `-groups-ratio` or the `-balance` band), and writes the
 merged mesh; `-nobalance` keeps the interfaces where the partition put
-them. Flags of paths this slice of the port does not carry (distributed
-I/O, fields, level-set, VTK, checkpoints, renumbering, partitioning
-output) are accepted by the parser and refused with
-`NotImplementedError` naming the ROADMAP item that brings them.
+them. `-field f.sol` carries solution fields through the adaptation
+and writes them as `<out>.fields.sol`; `-ls [iso]` splits the mesh along
+the level set given by `-sol` before adapting; a `.vtu` name reads or
+writes ASCII VTK. Flags of paths the port does not carry yet
+(distributed I/O, checkpoints, renumbering, partitioning output) are
+accepted by the parser and refused with `NotImplementedError` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-sol", "-met", dest="sol", default=None,
                    help="metric .sol file")
     p.add_argument("-field", dest="field", default=None,
-                   help="solution-field .sol (not ported yet)")
+                   help="solution-field .sol to interpolate from the "
+                   "input onto the adapted mesh")
     p.add_argument("-noout", action="store_true",
                    help="do not write the output mesh")
     p.add_argument("-val", dest="print_val", action="store_true",
@@ -108,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="centralized output (the default of this port)")
     p.add_argument("-distributed-input", dest="dist_in",
                    action="store_true")
-    p.add_argument("-ls", type=float, nargs="?", const=0.0, default=None)
+    p.add_argument("-ls", type=float, nargs="?", const=0.0, default=None,
+                   help="level-set discretization at the given isovalue "
+                   "(the -sol file is the level set)")
     p.add_argument("-ckpt", dest="ckpt", default=None)
     p.add_argument("-ckpt-every", dest="ckpt_every", type=int, default=None)
     p.add_argument("-ckpt-async", dest="ckpt_async", action="store_true")
@@ -125,9 +131,6 @@ _REFUSED = (
     ("-pure-partitioning", "pure_partitioning", bool,
      "queue 1, item 12 (partitioning output)"),
     ("-rn", "renumber", bool, "queue 1, item 12 (SFC renumbering)"),
-    ("-field", "field", lambda v: v is not None,
-     "queue 1, item 11 (interp_fields_only)"),
-    ("-ls", "ls", lambda v: v is not None, "queue 1, item 11 (level set)"),
     ("-ckpt", "ckpt", lambda v: v is not None,
      "queue 1, item 15 (checkpoint/resume)"),
     ("-ckpt-every", "ckpt_every", lambda v: v is not None,
@@ -142,11 +145,6 @@ def _refuse_unported(args) -> None:
         if is_set(getattr(args, dest)):
             raise NotImplementedError(
                 f"{flag}: not ported yet — ROADMAP {item} brings it")
-    for path in (args.input, args.out):
-        if path and path.endswith((".vtu", ".pvtu")):
-            raise NotImplementedError(
-                f"{path}: VTK I/O is not ported yet — ROADMAP queue 1, "
-                "item 11 brings it")
 
 
 def print_default_values() -> None:
@@ -183,12 +181,17 @@ def main(argv=None, device=None) -> int:
         return 0
     if args.input is None:
         build_parser().error("an input mesh is required")
+    if args.field and args.dist_in:
+        # the reference prints the same error (`src/parmmg.c:300`)
+        print("  ## Error: Distributed fields input not yet "
+              "implemented.", file=sys.stderr)
+        return 1
     _refuse_unported(args)
 
     import torch
 
     from . import resolve_device
-    from .io import medit, parsop
+    from .io import medit, parsop, vtk
     from .models.adapt import adapt
     from .models.distributed import (DistOptions, adapt_distributed,
                                      merge_adapted)
@@ -231,8 +234,39 @@ def main(argv=None, device=None) -> int:
         min_shard_elts=args.mesh_size or DistOptions.min_shard_elts,
     )
 
+    fields = None
+    if args.field:
+        fields, field_ncomp = medit.load_fields(args.field)
+
     with timers.phase("input"):
-        mesh = medit.load_mesh(args.input, args.sol, device=device)
+        if args.ls is not None:
+            # in ls mode the sol file is the level set
+            raw = medit.read_mesh(args.input)
+            ls = None
+            if args.sol:
+                ls = medit.read_sol(args.sol)[0][:, :1]
+            mesh = medit.raw_to_mesh(raw, ls=ls, device=device)
+        elif args.input.endswith(".vtu"):
+            mesh = vtk.load_vtu(args.input, device=device)
+        else:
+            mesh = medit.load_mesh(args.input, args.sol, device=device)
+        if fields is not None:
+            npo = int(mesh.npoin)
+            if len(fields) != npo:
+                print(f"  ## Error: -field has {len(fields)} entries "
+                      f"for {npo} vertices.", file=sys.stderr)
+                return 1
+            pad = torch.zeros((mesh.pcap, fields.shape[1]),
+                              dtype=mesh.dtype)
+            pad[:npo] = torch.from_numpy(fields)
+            mesh = mesh.replace(fields=pad.to(device),
+                                field_ncomp=tuple(field_ncomp))
+
+    if args.ls is not None:
+        from .models.levelset import discretize_levelset
+
+        with timers.phase("level-set"):
+            mesh = discretize_levelset(mesh, isovalue=args.ls)
 
     with timers.phase("remeshing"):
         if args.nparts > 1:
@@ -263,8 +297,17 @@ def main(argv=None, device=None) -> int:
         with timers.phase("output"):
             if args.nparts > 1:
                 mesh_out = merge_adapted(stacked, comm)
-            medit.save_mesh(mesh_out, out)
-            medit.save_met(mesh_out, medit.met_filename(out))
+            # a .pvtu name without -distributed-output gets the .vtu
+            # content, as in the JAX package
+            vtu = out.endswith((".vtu", ".pvtu"))
+            if vtu:
+                vtk.save_vtu(mesh_out, out)
+            else:
+                medit.save_mesh(mesh_out, out)
+                medit.save_met(mesh_out, medit.met_filename(out))
+            if args.field and not vtu:
+                medit.save_fields(mesh_out,
+                                  os.path.splitext(out)[0] + ".fields.sol")
     timers.report()
     return 0
 

@@ -317,6 +317,24 @@ def save_met(mesh: Mesh, path: str) -> None:
     save_sol(path, d["met"], [t])
 
 
+_NCOMP_SOL = {v: k for k, v in _SOL_NCOMP.items()}
+
+
+def save_fields(mesh: Mesh, path: str) -> None:
+    """Save the interpolated solution fields (`-field` output, the
+    `PMMG_saveAllSols_centralized` role)."""
+    d = mesh.to_numpy()
+    types = [_NCOMP_SOL[nc] for nc in d["field_ncomp"]]
+    save_sol(path, d["fields"], types)
+
+
+def load_fields(path: str):
+    """Read a solution-fields sol file: (values [n, sum(ncomp)], ncomp
+    tuple) for Mesh.from_numpy's fields/field_ncomp."""
+    vals, types = read_sol(path)
+    return vals, tuple(_SOL_NCOMP[t] for t in types)
+
+
 def met_filename(path: str) -> str:
     """Metric sol name next to a mesh path."""
     base, ext = os.path.splitext(path)

@@ -14,9 +14,12 @@ its candidates on their one-ring closure and reuses or merges the edge
 and face tables instead of rebuilding them. `frontier=False` gives the
 full-table sweeps.
 
-Not ported in this slice, refused with `NotImplementedError` naming the
-ROADMAP item that brings them: solution fields/level-set/displacement
-post-passes, checkpointing, fault injection, the run governor and
+A mesh that carries solution fields, a level set or a displacement
+has them re-interpolated once from the input (`interp_fields_only`)
+after the final polish and compaction.
+
+Not ported, refused with `NotImplementedError` naming the ROADMAP item
+that brings them: checkpointing, fault injection, the run governor and
 kernel-mode switching.
 """
 
@@ -31,7 +34,8 @@ import torch
 from .. import resolve_device
 from ..core import adjacency, metric as metric_mod, tags
 from ..core.mesh import Mesh, compact, compact_aux, tet_volumes
-from ..ops import analysis, collapse, common, quality, smooth, split, swap
+from ..ops import (analysis, collapse, common, interp, quality, smooth,
+                   split, swap)
 from ..ops.common import scatter, take
 
 
@@ -759,12 +763,6 @@ def adapt(mesh: Mesh, opts: AdaptOptions | None = None, device=None,
     device = resolve_device(device)
     opts = opts or AdaptOptions()
     check_supported(opts)
-    if mesh.fields.shape[1] + mesh.ls.shape[1] + mesh.disp.shape[1]:
-        raise NotImplementedError(
-            "meshes carrying solution fields, a level-set or a "
-            "displacement need the fields post-pass (interp_fields_only), "
-            "which ROADMAP queue 1, item 11 brings"
-        )
     mesh = mesh.to(device)
     if opts.mem_budget_mb is None:
         derived = default_mem_budget_mb(device)
@@ -807,6 +805,12 @@ def adapt(mesh: Mesh, opts: AdaptOptions | None = None, device=None,
         else:
             mesh = mesh.with_capacity(*want)
 
+    # snapshot for the solution-field post-pass: the fields are pulled
+    # once from the input, so relocation drift cannot accumulate (every
+    # operator returns new tensors, so holding the mesh keeps it intact)
+    has_sols = (mesh.fields.shape[1] + mesh.ls.shape[1]
+                + mesh.disp.shape[1]) > 0
+    old_snapshot = mesh if has_sols else None
     history: List[dict] = []
     status = tags.ReturnStatus.SUCCESS
     last_good = mesh.clone()
@@ -826,6 +830,8 @@ def adapt(mesh: Mesh, opts: AdaptOptions | None = None, device=None,
     _phase("finalize")
     mesh = _polish(mesh, opts, emult, hausd)
     mesh = compact(mesh)
+    if old_snapshot is not None:
+        mesh = interp.interp_fields_only(mesh, old_snapshot)
     h1 = quality.quality_histogram(mesh)
     len_out = quality.mesh_length_stats(mesh)
     info = dict(history=history, qual_in=h0, qual_out=h1, len_out=len_out,

@@ -5,7 +5,8 @@ Counterpart of `parmmg_tpu/models/distributed.py` on its single-process
 path (`_remesh_phase_local`): the mesh is partitioned along a Morton
 curve into `nparts` shards of uniform capacities, carried as a list of
 per-shard `Mesh`es; every iteration remeshes each shard's interior with
-its PARBDY interfaces frozen, re-interpolates the metric from the
+its PARBDY interfaces frozen, re-interpolates the metric (and the
+solution fields, level set and displacement the mesh carries) from the
 pre-remesh snapshot and then, unless `nobalancing` (`-nobalance`),
 rebalances: the shards are stacked (leading shard axis, as the JAX
 package's stacked mesh), tets are recolored by interface displacement
@@ -370,11 +371,6 @@ def adapt_distributed(mesh: Mesh, opts: Optional[DistOptions] = None,
             "DistOptions.check_comm (communicator checks every iteration) "
             "is not ported yet: ROADMAP queue 1, item 12 "
             "(parallel/chkcomm.py) brings it")
-    if mesh.fields.shape[1] + mesh.ls.shape[1] + mesh.disp.shape[1]:
-        raise NotImplementedError(
-            "meshes carrying solution fields, a level-set or a "
-            "displacement are not ported yet: ROADMAP queue 1, item 11 "
-            "(interp_fields_only, level set)")
     mesh = mesh.to(device)
     if opts.mem_budget_mb is None:
         derived = default_mem_budget_mb(device)

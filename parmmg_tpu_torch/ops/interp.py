@@ -30,12 +30,13 @@ from .common import take
 
 
 def take_rows(a, idx):
-    """Per-shard `take`: a [D,N,...] gathered at idx [D,Q] -> [D,Q,...],
-    with JAX's gather convention within each shard."""
+    """Per-shard `take`: a [D,N,...] gathered at idx [D,Q,...] ->
+    [D,Q,...,...], with JAX's gather convention within each shard."""
     n = a.shape[1]
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
-    return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
+    shard = torch.arange(a.shape[0], device=a.device)
+    return a[shard.view((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
 def _lin(bary, a, vids):
@@ -73,6 +74,30 @@ def interp_at_points(old: Mesh, tet_idx, pts):
                                     pts.contiguous())
     return (met, _lin(bary, old.ls, vids), _lin(bary, old.disp, vids),
             _lin(bary, old.fields, vids))
+
+
+def interp_fields_only(new: Mesh, old: Mesh, max_steps: int = 64) -> Mesh:
+    """Re-interpolate only the user fields (and ls/disp) of `new` from the
+    `old` snapshot — the single-shard post-pass (the metric is maintained
+    by the operators and left untouched). `old` must carry a fresh
+    adjacency."""
+    if (new.fields.shape[1] + new.ls.shape[1] + new.disp.shape[1]) == 0:
+        return new
+    # dead slots would walk from (0,0,0), possibly outside the domain,
+    # into the exhaustive fallback: aim them at slot 0 (a live vertex of
+    # a compacted mesh); their values are discarded
+    pts = torch.where(new.vmask[:, None], new.vert, new.vert[:1])
+    res = locate.locate_points(old, pts, max_steps=max_steps)
+    vids = take(old.tet, res.tet)
+
+    def sel(cur, a):
+        if cur.shape[1] == 0:
+            return cur
+        q = _lin(res.bary, a, vids)
+        return torch.where(new.vmask[:, None], q.to(cur.dtype), cur)
+
+    return new.replace(ls=sel(new.ls, old.ls), disp=sel(new.disp, old.disp),
+                       fields=sel(new.fields, old.fields))
 
 
 def interp_at_tria(old: Mesh, tria_idx, bary):

@@ -10,6 +10,19 @@ the per-sweep integer history, final counts and histogram counts must be
 equal, qmin and qavg within 5e-11 relative (the sums run in another
 order), the final mesh equal slot for slot (coordinates within 5e-11). The JAX
 run is made in a child process (`test_torch_ops.jax_side`).
+
+Solution fields, level set and VTK (a second child, compiled at XLA's
+backend optimisation level 0 as in tests/test_torch_interp.py):
+`discretize_levelset` gives the JAX package's arrays bit for bit on the
+sphere and plane cases of tests/test_m7_levelset.py and on a sphere
+through vertices of the grid (snapped); `adapt()` of the discretized
+sphere carrying a `(1, 3)` linear field (frontier sweeps, hsiz 0.2,
+niter 1, max_sweeps 6) gives JAX's per-sweep integer history and final
+mesh slot for slot (the live tets as a set, see `_assert_mesh_leaves`),
+coordinates, metric, ls and fields within 5e-11;
+`save_fields`, `save_vtu` and `save_pvtu` write JAX's bytes for that
+adapted mesh, and `load_vtu` reads JAX's file into JAX's arrays. The
+CLI's `-field`, `-ls` and `.vtu` paths write what the API gives.
 """
 
 import ast
@@ -23,9 +36,13 @@ from parmmg_tpu_torch import __main__ as t_cli
 from parmmg_tpu_torch.core import mesh as t_mesh
 from parmmg_tpu_torch.core import tags
 from parmmg_tpu_torch.io import medit as t_medit
+from parmmg_tpu_torch.io import vtk as t_vtk
 from parmmg_tpu_torch.models import adapt as t_adapt
+from parmmg_tpu_torch.models import levelset as t_ls
+from parmmg_tpu_torch.parallel.distribute import stack_meshes
 from parmmg_tpu_torch.utils import conformity, gen as t_gen
-from test_torch_ops import one_torch_thread, start_jax_side  # noqa: F401
+from test_torch_ops import (one_torch_thread, put_mesh,  # noqa: F401
+                            start_jax_side, to_torch)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 5e-11
@@ -61,25 +78,137 @@ def jax_adapt() -> dict:
     return out
 
 
+O0 = "--xla_backend_optimization_level=0 --xla_cpu_multi_thread_eigen=false"
+LS_CASE = dict(hsiz=0.2, niter=1, max_sweeps=6, hgrad=None)
+# level-set cases on the unit cube n=4: (isovalue offset, sphere radius
+# or None for the plane z = 0.5); the radius 0.25 passes through grid
+# vertices, which the offset puts within the snapping tolerance
+LS_CASES = dict(sphere=(0.0, 0.3), plane=(0.0, None), snapped=(1e-9, 0.25))
+FILES = ("fields.sol", "m.vtu", "p.pvtu", "p_0.vtu", "p_1.vtu")
+
+
+def linear_fields(v):
+    """The `(1, 3)` field of the tests: 1 + x + 2y + 3z and (y, z, x)."""
+    return np.stack([1 + v[:, 0] + 2 * v[:, 1] + 3 * v[:, 2],
+                     v[:, 1], v[:, 2], v[:, 0]], axis=1)
+
+
+def ls_input(case: str, unit_cube):
+    """(raw cube, level set [n, 1]) of a level-set case."""
+    off, radius = LS_CASES[case]
+    raw = unit_cube(4)
+    v = raw["verts"]
+    ls = (v[:, 2] - 0.5 if radius is None
+          else np.linalg.norm(v - 0.5, axis=1) - radius) + off
+    return raw, ls[:, None]
+
+
+def ls_mesh(case: str, from_numpy, unit_cube, **kw):
+    """A level-set case's input mesh, carrying the linear field."""
+    raw, ls = ls_input(case, unit_cube)
+    return from_numpy(raw["verts"], raw["tets"], trias=raw["trias"],
+                      trrefs=raw["trrefs"], ls=ls,
+                      fields=linear_fields(raw["verts"]),
+                      field_ncomp=(1, 3), **kw)
+
+
+def jax_ls_fields(tmp) -> dict:
+    """The JAX side of the fields, level-set and VTK checks (in the child
+    process): the discretized cases, the adaptation of the discretized
+    sphere, the files its output writes and what `load_vtu` reads."""
+    import jax
+    import jax.numpy as jnp
+
+    from parmmg_tpu.core.mesh import Mesh
+    from parmmg_tpu.io import medit, vtk
+    from parmmg_tpu.models import adapt as j_adapt
+    from parmmg_tpu.models.levelset import discretize_levelset
+    from parmmg_tpu.utils import gen as j_gen
+
+    out = {}
+    for case in LS_CASES:
+        put_mesh(out, f"ls_{case}", discretize_levelset(ls_mesh(
+            case, Mesh.from_numpy, j_gen.unit_cube, dtype=jnp.float64)))
+    jm, ji = j_adapt.adapt(discretize_levelset(ls_mesh(
+        "sphere", Mesh.from_numpy, j_gen.unit_cube, dtype=jnp.float64)),
+        j_adapt.AdaptOptions(**LS_CASE))
+    out.update({f"hist/{k}": np.asarray([r[k] for r in ji["history"]])
+                for k in HIST_KEYS})
+    out["status"] = np.asarray(int(ji["status"]))
+    put_mesh(out, "adapted", jm)
+    medit.save_fields(jm, f"{tmp}/fields.sol")
+    vtk.save_vtu(jm, f"{tmp}/m.vtu")
+    vtk.save_pvtu(jax.tree_util.tree_map(lambda *a: jnp.stack(a), jm, jm),
+                  None, f"{tmp}/p.pvtu")
+    for name in FILES:
+        with open(f"{tmp}/{name}", "rb") as f:
+            out[f"file/{name}"] = np.frombuffer(f.read(), np.uint8)
+    put_mesh(out, "vtu_loaded", vtk.load_vtu(f"{tmp}/m.vtu"))
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(JAX run, port run) of the case; the JAX run's child process
-    works while the port adapts."""
+    """(JAX run, port run) of the case, and the JAX side of the fields,
+    level-set and VTK checks; the child processes work while the port
+    adapts."""
     jax_run = start_jax_side(__file__, "jax_adapt",
                              tmp_path_factory.mktemp("adapt"), ())
+    tmp = tmp_path_factory.mktemp("lsf")
+    jax_ls = start_jax_side(__file__, "jax_ls_fields", tmp, (tmp,),
+                            xla_flags=O0)
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
         torch_run = t_adapt.adapt(
             t_gen.unit_cube_mesh(4, dtype=torch.float64, device="cpu"),
             t_adapt.AdaptOptions(frontier=False, **CASE), device="cpu")
+        ls_run = t_adapt.adapt(t_ls.discretize_levelset(ls_mesh(
+            "sphere", t_mesh.Mesh.from_numpy, t_gen.unit_cube,
+            dtype=torch.float64, device="cpu")),
+            t_adapt.AdaptOptions(**LS_CASE), device="cpu")
     finally:
         torch.use_deterministic_algorithms(prev)
-    return jax_run(), torch_run
+    return jax_run(), torch_run, jax_ls(), ls_run
 
 
-def test_adaptation_equals_live_jax(runs):
-    j, (tm, ti) = runs
+def _tet_rows(s: dict):
+    """The live (tet, tref) rows of a mesh state, sorted: the tets as a
+    set."""
+    rows = np.concatenate([s["tet"], s["tref"][:, None]], axis=1)
+    rows = rows[s["tmask"]]
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _assert_mesh_leaves(got, ref: dict, key: str, rtol=RTOL,
+                        tet_order=True):
+    """Every leaf of `got` equal to the JAX mesh stored under `key`
+    (floats within `rtol`; 0 asks for bit equality). With
+    `tet_order=False` the live tets compare as a set: the reference's
+    jitted operators can place a group of new tets in another slot order
+    than its op-by-op run, which the port follows (ROADMAP queue 3)."""
+    b = got.to_numpy_state()
+    if not tet_order:
+        a = {k: ref[f"{key}/{k}"] for k in ("tet", "tref", "tmask")}
+        np.testing.assert_array_equal(_tet_rows(b), _tet_rows(a))
+    for k in t_mesh.LEAVES:
+        a = ref[f"{key}/{k}"]
+        assert b[k].shape == a.shape, (k, b[k].shape, a.shape)
+        if k in ("tet", "tref") and not tet_order:
+            continue
+        if a.dtype.kind == "f" and rtol:
+            np.testing.assert_allclose(b[k], a, rtol=rtol, atol=rtol,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(b[k], a, err_msg=k)
+    assert got.field_ncomp == tuple(int(x) for x in ref[f"{key}/field_ncomp"])
+    assert got.met_set == bool(ref[f"{key}/met_set"])
+
+
+def test_adaptation_equals_live_jax(runs, tmp_path):
+    """The full-table case, then the fields, level-set and VTK checks
+    (module docstring), against the live JAX runs."""
+    j, (tm, ti), jls, ls_run = runs
     th = ti["history"]
     assert len(j["hist/sweep"]) == len(th) >= 4
     for i, b in enumerate(th):
@@ -113,14 +242,74 @@ def test_adaptation_equals_live_jax(runs):
         else:
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     assert conformity.check_mesh(tm).ok
+    _check_levelset(jls)
+    _check_ls_fields_adapt(jls, ls_run)
+    _check_files(jls, tmp_path)
 
 
-def test_cli_round_trip(tmp_path, monkeypatch):
+def _check_levelset(r):
+    """`discretize_levelset` bit for bit on every case (the snapped
+    case has vertices within the snapping tolerance); every case splits
+    the field linearly."""
+    for case in LS_CASES:
+        m = ls_mesh(case, t_mesh.Mesh.from_numpy, t_gen.unit_cube,
+                    dtype=torch.float64, device="cpu")
+        out = t_ls.discretize_levelset(m)
+        _assert_mesh_leaves(out, r, f"ls_{case}", rtol=0)
+        d = out.to_numpy()
+        np.testing.assert_allclose(d["fields"], linear_fields(d["verts"]),
+                                   rtol=1e-14, atol=1e-14)
+        # the plane runs along a vertex layer and cuts no tet
+        niso = (d["trrefs"] == t_ls.REF_ISO).sum()
+        assert (niso > 0) == (LS_CASES[case][1] is not None), case
+    raw, ls = ls_input("snapped", t_gen.unit_cube)
+    assert (np.abs(ls) < 1e-8).sum() > 0
+
+
+def _check_ls_fields_adapt(r, run):
+    """The discretized sphere with its field through `adapt()`: history,
+    status and mesh against JAX; the linear field stays linear."""
+    tm, ti = run
+    th = ti["history"]
+    assert len(r["hist/sweep"]) == len(th) >= 4
+    for i, b in enumerate(th):
+        for k in HIST_KEYS:
+            assert r[f"hist/{k}"][i] == b[k], (b["sweep"], k,
+                                               r[f"hist/{k}"][i], b[k])
+    assert int(ti["status"]) == int(r["status"]) == 0
+    _assert_mesh_leaves(tm, r, "adapted", tet_order=False)
+    d = tm.to_numpy()
+    assert d["fields"].shape[1] == 4 and d["ls"].shape[1] == 1
+    np.testing.assert_allclose(d["fields"], linear_fields(d["verts"]),
+                               rtol=1e-12, atol=1e-12)
+    assert conformity.check_mesh(tm).ok
+
+
+def _check_files(r, tmp_path):
+    """The files of the adapted mesh (taken from the JAX side) byte for
+    byte; `load_vtu` of JAX's file gives JAX's `load_vtu` leaves."""
+    m = to_torch(r, "adapted")
+    t_medit.save_fields(m, str(tmp_path / "fields.sol"))
+    t_vtk.save_vtu(m, str(tmp_path / "m.vtu"))
+    t_vtk.save_pvtu(stack_meshes([m, m]), None, str(tmp_path / "p.pvtu"))
+    for name in FILES:
+        got = np.frombuffer((tmp_path / name).read_bytes(), np.uint8)
+        np.testing.assert_array_equal(got, r[f"file/{name}"], err_msg=name)
+    (tmp_path / "jax.vtu").write_bytes(r["file/m.vtu"].tobytes())
+    loaded = t_vtk.load_vtu(str(tmp_path / "jax.vtu"), device="cpu")
+    _assert_mesh_leaves(loaded, r, "vtu_loaded", rtol=0)
+    vals, ncomp = t_medit.load_fields(str(tmp_path / "fields.sol"))
+    assert ncomp == (1, 3)
+    np.testing.assert_allclose(vals, m.to_numpy()["fields"], rtol=1e-14)
+
+
+def test_cli_round_trip(tmp_path, monkeypatch, capsys):
     """The CLI loads, adapts with its defaults (frontier sweeps) and with
     `-nofrontier` (full-table sweeps), and writes mesh + metric: each
     output reloads to the mesh `adapt()` gives on the same input and
     options, conforming, and the two outputs differ where `adapt()`'s
-    do (on this small case neither does)."""
+    do (on this small case neither does). Then the fields, level-set
+    and VTK paths (`_check_cli_fields_ls_vtu`)."""
     raw = t_gen.unit_cube(3)
     src = str(tmp_path / "cube3.mesh")
     t_medit.save_mesh(t_mesh.Mesh.from_numpy(
@@ -161,6 +350,68 @@ def test_cli_round_trip(tmp_path, monkeypatch):
                 for k in ("tets", "verts")]
 
     assert same(got) == same(ref)
+    _check_cli_fields_ls_vtu(src, tmp_path, capsys)
+
+
+def _check_cli_fields_ls_vtu(src, tmp_path, capsys):
+    """`-field` (its `<out>.fields.sol`), `-ls` with a `.vtu` output,
+    a `.vtu` input with a `.pvtu` name (which gets the `.vtu` content),
+    each file byte for byte what the API's run on the same input writes;
+    a `-field` file of the wrong length, and `-field` with
+    `-distributed-input`, exit 1 with the JAX package's messages."""
+    v = t_medit.read_mesh(src).verts
+    fsol, lsol = str(tmp_path / "f.sol"), str(tmp_path / "ls.sol")
+    t_medit.save_sol(fsol, linear_fields(v), [1, 2])
+    t_medit.save_sol(lsol, np.linalg.norm(v - 0.5, axis=1)[:, None] - 0.3,
+                     [1])
+    opts = t_adapt.AdaptOptions(hsiz=0.3, niter=1)
+    cli = ["-hsiz", "0.3", "-niter", "1", "-v", "0"]
+
+    def api(mesh, path, save):
+        save(t_adapt.adapt(mesh, opts, device="cpu")[0], path)
+        return pathlib.Path(path).read_bytes()
+
+    out = str(tmp_path / "of.mesh")
+    assert t_cli.main([src, "-field", fsol, "-out", out] + cli,
+                      device="cpu") == 0
+    m = t_medit.load_mesh(src, device="cpu")
+    vals, ncomp = t_medit.load_fields(fsol)
+    m = m.replace(fields=torch.as_tensor(np.pad(
+        vals, ((0, m.pcap - len(v)), (0, 0))), dtype=m.dtype),
+        field_ncomp=ncomp)
+    assert api(m, str(tmp_path / "api.sol"), t_medit.save_fields) \
+        == (tmp_path / "of.fields.sol").read_bytes()
+    vals, ncomp = t_medit.load_fields(str(tmp_path / "of.fields.sol"))
+    vo = t_medit.read_mesh(out).verts
+    assert ncomp == (1, 3) and len(vals) == len(vo) > len(v)
+    np.testing.assert_allclose(vals, linear_fields(vo), rtol=1e-6, atol=1e-6)
+
+    out = str(tmp_path / "ls.vtu")
+    assert t_cli.main([src, "-ls", "-sol", lsol, "-out", out] + cli,
+                      device="cpu") == 0
+    m = t_ls.discretize_levelset(t_medit.raw_to_mesh(
+        t_medit.read_mesh(src), ls=t_medit.read_sol(lsol)[0][:, :1],
+        device="cpu"))
+    assert api(m, str(tmp_path / "api.vtu"), t_vtk.save_vtu) \
+        == pathlib.Path(out).read_bytes()
+    back = t_vtk.load_vtu(out, device="cpu").to_numpy()
+    assert len(back["trias"]) > len(t_medit.read_mesh(src).trias)
+
+    assert t_cli.main([out, "-out", str(tmp_path / "v.pvtu")] + cli,
+                      device="cpu") == 0
+    assert api(t_vtk.load_vtu(out, device="cpu"),
+               str(tmp_path / "api2.vtu"), t_vtk.save_vtu) \
+        == (tmp_path / "v.pvtu").read_bytes()
+
+    t_medit.save_sol(fsol, linear_fields(v)[1:], [1, 2])
+    capsys.readouterr()
+    assert t_cli.main([src, "-field", fsol] + cli, device="cpu") == 1
+    assert (f"-field has {len(v) - 1} entries for {len(v)} vertices"
+            in capsys.readouterr().err)
+    assert t_cli.main([src, "-field", fsol, "-distributed-input"] + cli,
+                      device="cpu") == 1
+    assert "Distributed fields input not yet implemented" \
+        in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +460,8 @@ UNPORTED_OPTIONS = [
 
 UNPORTED_FLAGS = [
     ["-distributed-output"], ["-distributed-input"],
-    ["-field", "f.sol"], ["-ls"], ["-ckpt", "ck"], ["-ckpt-every", "2"],
-    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"], ["-out", "o.vtu"],
+    ["-ckpt", "ck"], ["-ckpt-every", "2"],
+    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"],
 ]
 
 
@@ -220,12 +471,17 @@ def _assert_unported_refused(tmp_path):
         opts = t_adapt.AdaptOptions(niter=1, **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_adapt.adapt(m, opts, device="cpu")
+    # a mesh carrying a field adapts, and the field follows the vertices
     raw = t_gen.unit_cube(2)
     mf = t_mesh.Mesh.from_numpy(raw["verts"], raw["tets"],
-                                fields=np.zeros(len(raw["verts"])),
+                                fields=raw["verts"][:, :1],
                                 field_ncomp=(1,), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_adapt.adapt(mf, t_adapt.AdaptOptions(niter=1), device="cpu")
+    out, info = t_adapt.adapt(mf, t_adapt.AdaptOptions(niter=1, hsiz=0.3),
+                              device="cpu")
+    assert int(info["status"]) == 0 and int(out.ntet) > 48
+    d = out.to_numpy()
+    np.testing.assert_allclose(d["fields"][:, 0], d["verts"][:, 0],
+                               atol=1e-6)
     src = str(tmp_path / "r.mesh")
     t_medit.save_mesh(m, src)
     for extra in UNPORTED_FLAGS:

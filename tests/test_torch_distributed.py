@@ -35,7 +35,8 @@ numpy arrays.
   merged mesh equal, vertices slot for slot with coordinates and metric
   within `_rtol` (5e-11), the live tets as a set (the reference's jit
   and op-by-op runs order them differently, see `_assert_leaves`);
-  qmin/qavg within 5e-11 relative.
+  qmin/qavg within 5e-11 relative. Both graded cases carry a `(1, 3)`
+  linear field, compared with JAX's (stacked and merged, within 5e-11).
 - The snapshot the interpolation reads is not touched by the remesh;
   `-nparts 4 -nobalance` and `-nparts 4 -balance 1.2 -nlayers 2` run
   through the CLI and write the API's merged mesh.
@@ -94,6 +95,14 @@ def _case_options(case: str) -> dict:
 def _graded(v):
     """The graded iso size of the tests: 0.1 + 0.15 x."""
     return (0.1 + 0.15 * v[:, 0])[:, None]
+
+
+def _linear_fields(v):
+    """The `(1, 3)` field the graded cases carry: 1 + x + 2y + 3z and
+    (y, z, x). The split, the sweeps, the interpolation, the migration
+    and the merge move it, and none of them changes the mesh for it."""
+    return np.stack([1 + v[:, 0] + 2 * v[:, 1] + 3 * v[:, 2],
+                     v[:, 1], v[:, 2], v[:, 0]], axis=-1)
 
 
 def _put(out: dict, key: str, obj, names) -> None:
@@ -279,8 +288,10 @@ def _jax_adapt(out, case):
     mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
     kw = _case_options(case)
     if case != "hsiz":
-        mesh = mesh.replace(met=jnp.asarray(_graded(np.asarray(mesh.vert))),
-                            met_set=True)
+        v = np.asarray(mesh.vert)
+        mesh = mesh.replace(met=jnp.asarray(_graded(v)), met_set=True,
+                            fields=jnp.asarray(_linear_fields(v)),
+                            field_ncomp=(1, 3))
     st, comm, info = adapt_distributed(mesh, DistOptions(**kw))
     for k in HIST_KEYS:
         out[f"hist/{k}"] = np.asarray([r[k] for r in info["history"]])
@@ -406,7 +417,10 @@ def torch_runs(ref):
                                         device="cpu")
             kw = _case_options(case)
             if case != "hsiz":
-                mesh = mesh.replace(met=_graded(mesh.vert), met_set=True)
+                mesh = mesh.replace(met=_graded(mesh.vert), met_set=True,
+                                    fields=torch.as_tensor(
+                                        _linear_fields(mesh.vert.numpy())),
+                                    field_ncomp=(1, 3))
             runs[case] = t_dist.adapt_distributed(
                 mesh, t_dist.DistOptions(**kw), device="cpu")
     finally:
@@ -454,6 +468,16 @@ def _check_case(r, run, case):
         # interpolation moved values: the graded sizes are not constant
         met = merged.met[merged.vmask, 0]
         assert float(met.max() - met.min()) > 0.1
+        # the field (compared with JAX's above, stacked and merged, with
+        # the leaves) follows the vertices: the P1 pulls and the split
+        # midpoints are exact for a linear field, so most vertices carry
+        # its exact value; the surface path's nearest tria can lie off
+        # the vertex, on both sides (ROADMAP queue 3)
+        assert merged.field_ncomp == st.field_ncomp == (1, 3)
+        live = merged.vmask.numpy()
+        err = np.abs(merged.fields.numpy()[live] - _linear_fields(
+            merged.vert.numpy()[live])).max(axis=1)
+        assert (err < 1e-12).mean() > 0.8, (err < 1e-12).mean()
     bal = info["balance"]
     if case != "balanced":
         assert bal == []
@@ -593,9 +617,10 @@ def _check_snapshot_untouched():
 
 
 def _check_cli_round_trip(tmp_path):
-    """`-nparts 4 -nobalance`, then `-nparts 4 -balance 1.2 -nlayers 2`,
-    through the CLI on the CPU: the merged mesh each writes is conforming
-    and equals the API's merged mesh on the same options."""
+    """`-nparts 4 -nobalance`, then `-nparts 4 -balance 1.2 -nlayers 2
+    -field f.sol`, through the CLI on the CPU: the merged mesh each
+    writes is conforming and equals the API's merged mesh on the same
+    options, and the fields file is the API's byte for byte."""
     raw = t_gen.unit_cube(4)
     src = str(tmp_path / "cube4.mesh")
     t_medit.save_mesh(Mesh.from_numpy(
@@ -616,23 +641,34 @@ def _check_cli_round_trip(tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     np.testing.assert_array_equal(a["verts"], b["verts"])
     assert len(a["tets"]) != 6 * 4 ** 3
-    # balanced: the CLI's defaults (-groups-ratio 2.0) and the flags given
+    # balanced: the CLI's defaults (-groups-ratio 2.0) and the flags
+    # given, with a field (-field): its file is the API's merged fields
     bal = ["-nparts", "4", "-balance", "1.2", "-nlayers", "2"]
+    fsol = str(tmp_path / "f.sol")
+    t_medit.save_sol(fsol, _linear_fields(raw["verts"]), [1, 2])
     assert t_cli.main([src, "-hsiz", "0.3", "-niter", "2", "-v", "0",
-                       "-mesh-size", "16", "-out", out] + bal,
-                      device="cpu") == 0
+                       "-mesh-size", "16", "-out", out, "-field", fsol]
+                      + bal, device="cpu") == 0
     got = t_medit.load_mesh(out, device="cpu")
     assert conformity.check_mesh(got).ok
+    mesh = t_medit.load_mesh(src, device="cpu")
+    vals, ncomp = t_medit.load_fields(fsol)
+    mesh = mesh.replace(fields=torch.as_tensor(np.pad(
+        vals, ((0, mesh.pcap - len(vals)), (0, 0))), dtype=mesh.dtype),
+        field_ncomp=ncomp)
     st, comm, info = t_dist.adapt_distributed(
-        t_medit.load_mesh(src, device="cpu"),
-        dataclasses.replace(opts, niter=2, nobalancing=False,
-                            balance_band=1.2, ifc_layers=2,
-                            grps_ratio=2.0), device="cpu")
+        mesh, dataclasses.replace(opts, niter=2, nobalancing=False,
+                                  balance_band=1.2, ifc_layers=2,
+                                  grps_ratio=2.0), device="cpu")
     assert info["balance"] and info["balance"][-1]["trigger"] == "graph"
-    a, b = got.to_numpy(), t_dist.merge_adapted(st, comm).to_numpy()
+    merged = t_dist.merge_adapted(st, comm)
+    a, b = got.to_numpy(), merged.to_numpy()
     for k in ("tets", "trias", "trrefs", "edges"):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     np.testing.assert_array_equal(a["verts"], b["verts"])
+    t_medit.save_fields(merged, str(tmp_path / "api.sol"))
+    assert (tmp_path / "o.fields.sol").read_bytes() \
+        == (tmp_path / "api.sol").read_bytes()
 
 
 def _check_rollback_classes(monkeypatch):

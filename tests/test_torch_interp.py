@@ -55,6 +55,18 @@ def _spd6(rng, n, h):
     return M[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
 
 
+def _ls_of(v):
+    """A level set on the points `v`: the distance to the cube's centre
+    less 0.3."""
+    return (np.linalg.norm(v - 0.5, axis=1) - 0.3)[:, None]
+
+
+def _fields_of(v):
+    """A (1, 3) field on the points `v`, one part of it not linear."""
+    return np.stack([1 + v[:, 0] * v[:, 1] + 2 * v[:, 2], v[:, 1],
+                     v[:, 2] ** 2, v[:, 0]], axis=1)
+
+
 # ---------------------------------------------------------------------------
 # the JAX side (child process)
 # ---------------------------------------------------------------------------
@@ -200,7 +212,10 @@ def _jax_stacked(out):
         # metric graded along y, 0.1 on the true surface
         met = (0.3 + 0.1 * v[:, 1])[:, None]
         met[bdy] = 0.1
-        olds.append(m.replace(met=jnp.asarray(met), met_set=True))
+        olds.append(m.replace(met=jnp.asarray(met), met_set=True,
+                              ls=jnp.asarray(_ls_of(v)),
+                              fields=jnp.asarray(_fields_of(v)),
+                              field_ncomp=(1, 3)))
         v = v.copy()
         if s == 0:
             cand = np.nonzero(vm & bdy & ((vt & tags.REQUIRED) == 0))[0]
@@ -214,7 +229,10 @@ def _jax_stacked(out):
         inner = vm & ((vt & (tags.BDY | tags.PARBDY)) == 0)
         v[inner] += rng.uniform(-0.02, 0.02, size=(int(inner.sum()), 3))
         news.append(m.replace(vert=jnp.asarray(v),
-                              met=jnp.asarray(np.ones((m.pcap, 1)))))
+                              met=jnp.asarray(np.ones((m.pcap, 1))),
+                              ls=jnp.zeros((m.pcap, 1)),
+                              fields=jnp.zeros((m.pcap, 4)),
+                              field_ncomp=(1, 3)))
     stack = lambda ms: jax.tree_util.tree_map(  # noqa: E731
         lambda *xs: jnp.stack(xs), *ms)
     old, new = stack(olds), stack(news)
@@ -241,6 +259,16 @@ def _jax_driver(out):
     got, res = interp.interp_metrics_and_fields(new, old)
     _put_mesh(out, "got", got)
     out["found"] = np.asarray(res.found)
+    # the fields post-pass: the old mesh carries a level set and a (1, 3)
+    # field, the new one zeros (its dead slots included)
+    old_f = old.replace(ls=jnp.asarray(_ls_of(v)),
+                        fields=jnp.asarray(_fields_of(v)),
+                        field_ncomp=(1, 3))
+    new_f = new.replace(ls=jnp.zeros((new.pcap, 1)),
+                        fields=jnp.zeros((new.pcap, 4)), field_ncomp=(1, 3))
+    _put_mesh(out, "old_f", old_f)
+    _put_mesh(out, "new_f", new_f)
+    _put_mesh(out, "fields_only", interp.interp_fields_only(new_f, old_f))
 
 
 def jax_interp(*parts) -> dict:
@@ -400,7 +428,8 @@ def _check_stacked(ref):
     """interp_stacked on two shards: one walk and one interp_bary call
     over both shards, the surface path for BDY vertices, and the host
     rescue for the vertex pushed outside the old domain (which keeps
-    its surface value, 0.1)."""
+    its surface value, 0.1); the level set and the (1, 3) field the old
+    shards carry ride the same weights."""
     r = ref("stacked")
     old, new = _mesh(r, "old"), _mesh(r, "new")
     shards = t_interp.interp_stacked(unstack_mesh(new), unstack_mesh(old))
@@ -411,6 +440,8 @@ def _check_stacked(ref):
     for k in LEAVES:
         if k == "met":
             _close(out.met, want[k])
+        elif k in ("ls", "fields"):
+            _close(getattr(out, k), want[k], scale=1.0)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     moved = int(r["moved"])
@@ -418,6 +449,7 @@ def _check_stacked(ref):
     # the interpolation moved values, and the snapshot is untouched
     vm = got["vmask"]
     assert np.abs(got["met"][vm] - 1.0).min() > 1e-3
+    assert np.abs(got["fields"][vm][:, 0]).min() > 0.5
     for k in LEAVES:
         np.testing.assert_array_equal(old.to_numpy_state()[k],
                                       r[f"old/{k}"], err_msg=k)
@@ -425,13 +457,30 @@ def _check_stacked(ref):
 
 def _check_driver(ref):
     """The single-shard driver: every vertex of the new mesh located in
-    the old one and its size interpolated (graded metric)."""
+    the old one and its size interpolated (graded metric); and the
+    fields post-pass `interp_fields_only` on the same pair, the old mesh
+    carrying a level set and a (1, 3) field."""
     r = ref("driver")
     old, new = _mesh(r, "old"), _mesh(r, "new")
     got, res = t_interp.interp_metrics_and_fields(new, old)
     _close(got.met, r["got/met"])
     np.testing.assert_array_equal(res.found.numpy(), r["found"])
     assert r["found"].mean() > 0.9
+    # the fields post-pass, dead slots and all
+    new_f, old_f = _mesh(r, "new_f"), _mesh(r, "old_f")
+    out = t_interp.interp_fields_only(new_f, old_f)
+    want = {k: r[f"fields_only/{k}"] for k in LEAVES}
+    for k in LEAVES:
+        if k in ("ls", "fields"):
+            _close(getattr(out, k), want[k], scale=1.0)
+        else:
+            np.testing.assert_array_equal(getattr(out, k).numpy(), want[k],
+                                          err_msg=k)
+    vm = want["vmask"]
+    assert (~vm).any() and np.abs(want["fields"][vm, 0]).min() > 0.5
+    for k in LEAVES:
+        np.testing.assert_array_equal(getattr(old_f, k).numpy(),
+                                      r[f"old_f/{k}"], err_msg=k)
 
 
 def test_location_and_interpolation_match_jax(ref):
