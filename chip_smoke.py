@@ -57,12 +57,20 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    script, `adapt_distributed()` with the balanced options
    again under torch.profiler, which must give the balanced CLI's mesh
    bit for bit;
+2e. distributed workflow: the graded cube `-nparts 4 -pure-partitioning`
+   into binary per-rank files, then `-distributed-input` from them
+   (niter 3, balanced), counters read as in 2c; the per-rank input and
+   output reloaded on the card must pass `assert_comm_ok`, the output,
+   merged, must be conforming with qmin > 0 and an element count in the
+   window of 2c; every kernel launched, interp_bary at least niter
+   times; the check_comm block timed on the output;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of its own last launch on each path it runs on (tables of P
    rows, a stream of N rows; the three sweep kernels at the centralized
    shapes on the output of 2, and at the per-shard shapes of the
-   balanced run of 2c on a shard of its merged output; interp_bary over
-   D shards of that output) in f32 and f64, with iso (C=1)
+   balanced run of 2c on a shard of its merged output, and likewise for
+   2e, with quality_vol also at 2e's input histogram; interp_bary over
+   D shards of each output) in f32 and f64, with iso (C=1)
    and seeded SPD tensor (C=6) metrics where the kernel takes them
    (split_midpoint's booleans and interp_bary's outputs bit for bit,
    the qualities within RTOL);
@@ -81,11 +89,13 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    centralized and distributed (-nobalance), with frontier and with
    full-table sweeps, distributed balanced with frontier sweeps and the
    linear field, and centralized on a level-set-discretized cube with
-   the field: the per-sweep histories (and the rebalancings) must be
-   equal, the balanced one also to its field-less run's, ls and fields
-   within RTOL; on the card,
-   the device-to-host reads inside the sweep loops are counted (torch's
-   sync debug mode);
+   the field, `adapt_stacked_input()` on 2 per-rank binary files with
+   the communicator checks, and centralized after `renumber_sfc` (-rn):
+   the per-sweep histories (and the rebalancings) must be equal, the
+   balanced one also to its field-less run's, ls and fields within
+   RTOL; on the card, the device-to-host reads inside the sweep loops
+   are counted (torch's sync debug mode), and the per-rank run is timed
+   without and with the communicator checks;
 5. a `{"kernels": [...]}` line, the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -138,8 +148,11 @@ NOFRONTIER_MESH = (198_394, "0.209259", "0.874197")
 # NPARTS shards, the CLI's defaults (niter 3, hgrad 1.3, -ar 45, f32,
 # frontier sweeps, balancing between iterations); the window is about
 # 15 % either side of the JAX package's CLI on a CPU for this command
-# (151,249 tets; PERF.md); with -nobalance, frontier or not, the port
-# gives the count of earlier slices
+# (151,249 tets; PERF.md), which gives the same count for the
+# distributed workflow (the graded cube partitioned into binary per-rank
+# files by -pure-partitioning, then adapted from them by
+# -distributed-input); with -nobalance, frontier or not, the port gives
+# the count of earlier slices
 GRADED_H = (0.025, 0.05)
 NPARTS, NITER = 4, 3
 DIST_NE_RANGE = (128_000, 174_000)
@@ -579,7 +592,7 @@ def launch_report(label: str) -> None:
 
     parts = []
     for k in kernels.NAMES:
-        rows = sorted(kernels.ROWS[k])
+        rows = sorted(s[0] for s in kernels.LOG[k])
         shape = (f"N min {rows[0]} median {statistics.median(rows):g} "
                  f"max {rows[-1]}" if rows else "no launch")
         parts.append(f"{k} {kernels.LAUNCHES[k]} ({shape}; "
@@ -910,6 +923,114 @@ def check_rebalancing(text: str, label: str, balanced: bool) -> None:
             f"{label}: the last iteration did not take the graph cut")
 
 
+def distributed_input_path(n: int, ne_range):
+    """Phase 2e: the distributed workflow through the port's CLI on the
+    graded cube: `-pure-partitioning` into binary per-rank files
+    `parts.<r>.meshb/.solb`, then `-distributed-input` from them
+    (`-nparts NPARTS -niter NITER`, balancing between iterations, the
+    default) into per-rank output, launch counters set to 0 just before
+    that run and read just after. The per-rank input and output are
+    reloaded on the card with `load_mesh_distributed` and must pass
+    `assert_comm_ok`; the output, numbered and merged, must be
+    conforming with qmin > 0 and an element count in `ne_range`; every
+    kernel must launch, interp_bary at least niter times. The driver's
+    check_comm block (`rebuild_comm`, then `assert_comm_ok`) is timed
+    on the reloaded output. Returns (merged output on the card, launches,
+    shapes, the shape of quality_vol's smallest launch: a shard's input
+    histogram, which no other path launches)."""
+    import torch
+
+    from parmmg_tpu_torch import __main__ as cli
+    from parmmg_tpu_torch import kernels
+    from parmmg_tpu_torch.io import medit
+    from parmmg_tpu_torch.ops import quality
+    from parmmg_tpu_torch.parallel import chkcomm
+    from parmmg_tpu_torch.parallel.distribute import (
+        assign_global_ids, merge_shards, rebuild_comm)
+    from parmmg_tpu_torch.utils import conformity
+
+    label = "distributed input"
+    with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
+        cube, sol = write_graded_cube(work, n)
+        parts = os.path.join(work, "parts.meshb")
+        out = os.path.join(work, "dist.meshb")
+        steps = (
+            ("-pure-partitioning", [cube, "-sol", sol, "-nparts",
+                                    str(NPARTS), "-pure-partitioning",
+                                    "-out", parts]),
+            ("-distributed-input", [parts, "-sol",
+                                    medit.met_filename(parts), "-nparts",
+                                    str(NPARTS), "-distributed-input",
+                                    "-niter", str(NITER), "-out", out]))
+        texts = {}
+        for step, argv in steps:
+            print(f"## {label} {step}: python -m parmmg_tpu_torch "
+                  f"{' '.join(argv)}", flush=True)
+            kernels.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            texts[step] = buf.getvalue()
+            require(rc == 0, f"{label} {step}: CLI exited {rc}")
+            print(f"## {label} {step}: wall {wall:.3f} s, phases "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in
+                              phase_times(buf.getvalue()).items()))
+            if step == "-pure-partitioning":
+                for r in range(NPARTS):
+                    for name in (medit.shard_filename(parts, r),
+                                 medit.met_filename(
+                                     medit.shard_filename(parts, r))):
+                        require(medit.is_binary_file(name),
+                                f"{label}: {name} is not a binary file")
+        launches, shapes = dict(kernels.LAUNCHES), dict(kernels.SHAPES)
+        q_in = min(kernels.LOG["quality_vol"])
+        print(texts["-distributed-input"])
+        launch_report(label)
+        t0 = time.perf_counter()
+        reps = []
+        for name in (parts, out):
+            st, comm = medit.load_mesh_distributed(
+                name, NPARTS, metpath=medit.met_filename(name),
+                device="cuda")
+            reps.append(chkcomm.assert_comm_ok(st, comm, tol=1e-6))
+        t_reload = time.perf_counter() - t0
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            chkcomm.assert_comm_ok(st, rebuild_comm(st), tol=1e-6)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        st = assign_global_ids(st)
+        m = merge_shards(st, rebuild_comm(st))
+    print(f"## {label}: reloaded input and output pass assert_comm_ok "
+          f"(tol 1e-6): {reps}; reload and checks {t_reload:.3f} s; the "
+          f"check_comm block on the output (rebuild_comm, assert_comm_ok) "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s")
+    check_rollbacks([ln for ln in texts["-distributed-input"].splitlines()
+                     if "rolled back" in ln], f"the {label} CLI")
+    check_rebalancing(texts["-distributed-input"], label, True)
+    require(launches["interp_bary"] >= NITER,
+            f"interp_bary launched {launches['interp_bary']} times on the "
+            f"{label}, fewer than niter={NITER}")
+    for name in kernels.NAMES:
+        require(launches[name] > 0, f"kernel {name} never launched on the "
+                f"{label}")
+    rep = conformity.check_mesh(m)
+    require(rep.ok, f"{label}: merged output not conforming: {rep}")
+    h = quality.quality_histogram(m)
+    ne, qmin = int(h.ne), float(h.qmin)
+    require(qmin > 0, f"{label}: qmin {qmin} <= 0")
+    require(ne_range[0] <= ne <= ne_range[1],
+            f"{label}: ne {ne} outside {ne_range}")
+    in_band = quality.in_band_fraction(quality.mesh_length_stats(m))
+    print(f"## {label}: ne {ne} np {int(m.npoin)} qmin {qmin:.6g} "
+          f"qavg {float(h.qavg):.6f} in_band {in_band:.6f} conforming")
+    return m, launches, shapes, q_in
+
+
 def profile_distributed_path(n: int, cli_out) -> None:
     """Phase 2c, repeated: `adapt_distributed()` with the balanced CLI's
     options on the same input under torch.profiler, which must give the
@@ -1118,10 +1239,11 @@ def median_size(src) -> float:
     return float(src.met[src.tet.reshape(-1).long(), 0].median())
 
 
-def check_kernels(m, shapes: dict, hsiz: float, path: str) -> dict:
-    """Phase 3: each kernel against its plain version on the card, at the
-    (N stream rows, P table rows) of its own last launch on `path`
-    (`shapes`), on tables and tets of `m` (a mesh, or a shard from
+def check_kernels(m, shapes: dict, hsiz: float, path: str,
+                  names=CENTRAL) -> dict:
+    """Phase 3: each kernel of `names` against its plain version on the
+    card, at the (N stream rows, P table rows) of its own last launch on
+    `path` (`shapes`), on tables and tets of `m` (a mesh, or a shard from
     `shard_source`), f32 and f64, C = 1 and 6; timed. Returns {(name,
     dtype, C): numbers}."""
     import torch
@@ -1133,57 +1255,65 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str) -> dict:
     for dtn, dt in (("float32", torch.float32), ("float64", torch.float64)):
         isz = torch.finfo(dt).bits // 8
         for C in (1, 6):
-            N, P = shapes["quality_vol"]
-            vert, tet, *_ = stream_fixture(m, N, P, dt, hsiz)
-            met = metric(m, P, C, dt, hsiz)
-            s_vol, s_q = row_scales(vert, met, tet)
-            q, vol = kernels.quality_vol(vert, met, tet)
-            q0, vol0 = kernels.quality_vol_plain(vert, met, tet)
-            err = max(
-                check_close(q, q0, s_q, dtn, f"quality_vol q {dtn} C={C}"),
-                check_close(vol, vol0, s_vol, dtn,
-                            f"quality_vol vol {dtn} C={C}"))
-            results[("quality_vol", dtn, C)] = timed(
-                lambda: kernels.quality_vol(vert, met, tet),
-                lambda: kernels.quality_vol_plain(vert, met, tet),
-                err, *bound("quality_vol", C, P, N, isz, dtn))
+            if "quality_vol" in names:
+                N, P = shapes["quality_vol"]
+                vert, tet, *_ = stream_fixture(m, N, P, dt, hsiz)
+                met = metric(m, P, C, dt, hsiz)
+                s_vol, s_q = row_scales(vert, met, tet)
+                q, vol = kernels.quality_vol(vert, met, tet)
+                q0, vol0 = kernels.quality_vol_plain(vert, met, tet)
+                err = max(
+                    check_close(q, q0, s_q, dtn,
+                                f"quality_vol q {dtn} C={C}"),
+                    check_close(vol, vol0, s_vol, dtn,
+                                f"quality_vol vol {dtn} C={C}"))
+                results[("quality_vol", dtn, C)] = timed(
+                    lambda: kernels.quality_vol(vert, met, tet),
+                    lambda: kernels.quality_vol_plain(vert, met, tet),
+                    err, *bound("quality_vol", C, P, N, isz, dtn))
 
-            N, P = shapes["collapse_cavity"]
-            vert, tet, new_tet, *_ = stream_fixture(m, N, P, dt, hsiz)
-            met = metric(m, P, C, dt, hsiz)
-            floor = (POS_VOL_FRAC
-                     * kernels.quality_vol_plain(vert, met, tet)[1].abs()
-                     ).contiguous()
-            g = kernels.collapse_cavity(vert, met, new_tet, floor)
-            g0 = kernels.collapse_cavity_plain(vert, met, new_tet, floor)
-            require(torch.equal(torch.isinf(g), torch.isinf(g0)),
-                    f"collapse_cavity -inf positions differ ({dtn} C={C})")
-            fin = torch.isfinite(g0)
-            require(0 < int(fin.sum()) < N,
-                    "collapse_cavity fixture has no mix of gates")
-            err = check_close(g[fin], g0[fin],
-                              row_scales(vert, met, new_tet)[1][fin], dtn,
-                              f"collapse_cavity {dtn} C={C}")
-            results[("collapse_cavity", dtn, C)] = timed(
-                lambda: kernels.collapse_cavity(vert, met, new_tet, floor),
-                lambda: kernels.collapse_cavity_plain(vert, met, new_tet,
-                                                      floor),
-                err, *bound("collapse_cavity", C, P, N, isz, dtn))
+            if "collapse_cavity" in names:
+                N, P = shapes["collapse_cavity"]
+                vert, tet, new_tet, *_ = stream_fixture(m, N, P, dt, hsiz)
+                met = metric(m, P, C, dt, hsiz)
+                vol0 = kernels.quality_vol_plain(vert, met, tet)[1]
+                floor = (POS_VOL_FRAC * vol0.abs()).contiguous()
+                g = kernels.collapse_cavity(vert, met, new_tet, floor)
+                g0 = kernels.collapse_cavity_plain(vert, met, new_tet,
+                                                   floor)
+                require(torch.equal(torch.isinf(g), torch.isinf(g0)),
+                        f"collapse_cavity -inf positions differ ({dtn} "
+                        f"C={C})")
+                fin = torch.isfinite(g0)
+                require(0 < int(fin.sum()) < N,
+                        "collapse_cavity fixture has no mix of gates")
+                err = check_close(g[fin], g0[fin],
+                                  row_scales(vert, met, new_tet)[1][fin],
+                                  dtn, f"collapse_cavity {dtn} C={C}")
+                results[("collapse_cavity", dtn, C)] = timed(
+                    lambda: kernels.collapse_cavity(vert, met, new_tet,
+                                                    floor),
+                    lambda: kernels.collapse_cavity_plain(vert, met,
+                                                          new_tet, floor),
+                    err, *bound("collapse_cavity", C, P, N, isz, dtn))
 
-        N, P = shapes["split_midpoint"]
-        vert, tet, _, newp, li, lj = stream_fixture(m, N, P, dt, hsiz)
-        ok = kernels.split_midpoint(vert, tet, newp, li, lj)
-        ok0 = kernels.split_midpoint_plain(vert, tet, newp, li, lj)
-        require(torch.equal(ok, ok0),
-                f"split_midpoint booleans differ ({dtn})")
-        require(0 < int(ok0.sum()) < N,
-                "split_midpoint fixture has no mix of verdicts")
-        results[("split_midpoint", dtn, 0)] = timed(
-            lambda: kernels.split_midpoint(vert, tet, newp, li, lj),
-            lambda: kernels.split_midpoint_plain(vert, tet, newp, li, lj),
-            0.0, *bound("split_midpoint", 0, P, N, isz, dtn))
-        results[("split_midpoint", dtn, 0)]["launch_floor_ms"] = \
-            launch_floor(N, 1)
+        if "split_midpoint" in names:
+            N, P = shapes["split_midpoint"]
+            vert, tet, _, newp, li, lj = stream_fixture(m, N, P, dt,
+                                                        hsiz)
+            ok = kernels.split_midpoint(vert, tet, newp, li, lj)
+            ok0 = kernels.split_midpoint_plain(vert, tet, newp, li, lj)
+            require(torch.equal(ok, ok0),
+                    f"split_midpoint booleans differ ({dtn})")
+            require(0 < int(ok0.sum()) < N,
+                    "split_midpoint fixture has no mix of verdicts")
+            results[("split_midpoint", dtn, 0)] = timed(
+                lambda: kernels.split_midpoint(vert, tet, newp, li, lj),
+                lambda: kernels.split_midpoint_plain(vert, tet, newp, li,
+                                                     lj),
+                0.0, *bound("split_midpoint", 0, P, N, isz, dtn))
+            results[("split_midpoint", dtn, 0)]["launch_floor_ms"] = \
+                launch_floor(N, 1)
     for (name, dtn, C), r in results.items():
         N, P = shapes[name]
         print(f"## kernel {name} {dtn} C={C} P={P} N={N} ({path}): device "
@@ -1317,19 +1447,28 @@ def small_f64_runs() -> None:
     """Phase 4: unit cube n=4 at f64 on the card and on the CPU, through
     `adapt()` and through `adapt_distributed()` on 2 shards with
     -nobalance, each with frontier and with full-table sweeps, balanced
-    with frontier sweeps carrying the linear field, and `adapt()` of the
+    with frontier sweeps carrying the linear field, `adapt()` of the
     cube split along a sphere (`discretize_levelset`) carrying the
-    linear field: the per-sweep histories (with the rebalancings) must
-    be equal, the balanced one also to a field-less CPU run's, and the
-    level-set run's ls and fields within RTOL of the CPU's."""
+    linear field, `adapt_stacked_input()` on the cube's 2 per-rank
+    binary files with the communicator checks (balanced), and `adapt()`
+    after `renumber_sfc` (`-rn`): the per-sweep histories (with the
+    rebalancings) must be equal, the balanced one also to a field-less
+    CPU run's, and the level-set run's ls and fields within RTOL of the
+    CPU's; then the per-rank run is timed on the card without and with
+    the communicator checks."""
     import numpy as np
     import torch
 
+    from parmmg_tpu_torch.core.adjacency import build_adjacency
     from parmmg_tpu_torch.core.mesh import Mesh
+    from parmmg_tpu_torch.io import medit
     from parmmg_tpu_torch.models.adapt import AdaptOptions, adapt
     from parmmg_tpu_torch.models.distributed import (
-        DistOptions, adapt_distributed, merge_adapted)
+        DistOptions, adapt_distributed, adapt_stacked_input, merge_adapted)
     from parmmg_tpu_torch.models.levelset import discretize_levelset
+    from parmmg_tpu_torch.parallel.distribute import split_mesh
+    from parmmg_tpu_torch.parallel.partition import (renumber_sfc,
+                                                     sfc_partition)
     from parmmg_tpu_torch.utils import conformity, gen
 
     def cube(d, field=False):
@@ -1349,6 +1488,20 @@ def small_f64_runs() -> None:
             fields=linear_fields(v), field_ncomp=(1, 3),
             dtype=torch.float64, device=d))
 
+    def loaded(d):
+        # the cube's Morton split on 2 shards as binary per-rank files,
+        # loaded back on `d`
+        m = build_adjacency(cube("cpu"))
+        st, comm = split_mesh(m, sfc_partition(m, 2).numpy(), 2)
+        with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
+            path = os.path.join(work, "in.meshb")
+            medit.save_mesh_distributed(st, comm, path)
+            return medit.load_mesh_distributed(
+                path, 2, dtype=torch.float64, device=d)
+
+    def renumbered(d):
+        return build_adjacency(renumber_sfc(cube(d)))
+
     runs = {}
     for fr in (True, False):
         sweeps = "frontier" if fr else "full-table"
@@ -1367,6 +1520,15 @@ def small_f64_runs() -> None:
 
     runs["distributed balanced -field"] = (
         lambda d: cube(d, field=True), balanced)
+    def stacked_input(st, d, check=True):
+        return adapt_stacked_input(*st, DistOptions(
+            hsiz=0.18, niter=2, max_sweeps=6, hgrad=None,
+            check_comm=check), device=d)
+
+    runs["-distributed-input check_comm"] = loaded, stacked_input
+    runs["centralized -rn"] = renumbered, lambda m, d: adapt(
+        m, AdaptOptions(hsiz=0.18, niter=1, max_sweeps=6, hgrad=None),
+        device=d)
     runs["centralized -ls -field"] = sphere, lambda m, d: adapt(
         m, AdaptOptions(hsiz=0.2, niter=1, max_sweeps=6, hgrad=None),
         device=d)
@@ -1415,6 +1577,19 @@ def small_f64_runs() -> None:
                     "differs from the field-less run's")
             print(f"## f64 n=4 {label}: the field-less run's history")
     torch.set_num_threads(threads)
+    # what the communicator checks cost: the -distributed-input run on the
+    # card without and with them, alternated, each timed whole
+    walls = {False: [], True: []}
+    for check in (False, True, False, True):
+        st = loaded("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stacked_input(st, "cuda", check)
+        torch.cuda.synchronize()
+        walls[check].append(time.perf_counter() - t1)
+    print("## f64 n=4 -distributed-input on cuda, wall without check_comm "
+          + ", ".join(f"{w:.3f}" for w in walls[False]) + " s, with "
+          + ", ".join(f"{w:.3f}" for w in walls[True]) + " s")
 
 
 def main() -> int:
@@ -1445,6 +1620,8 @@ def main() -> int:
         distributed_path(CUBE_N, DIST_NE_RANGE, extra=extra,
                          expect_ne=DIST_NOBALANCE_NE)
     print(f"## phase 2c done at {time.perf_counter() - t0:.1f} s", flush=True)
+    m_in, _, shapes_in, q_in = distributed_input_path(CUBE_N, DIST_NE_RANGE)
+    print(f"## phase 2e done at {time.perf_counter() - t0:.1f} s", flush=True)
     results = check_kernels(m, shapes, HSIZ, "centralized")
     # the same kernels at the per-shard shapes of the balanced distributed
     # path: a rolled-back iteration can leave the run's last launches on
@@ -1455,6 +1632,17 @@ def main() -> int:
     src = shard_source(m_d, NPARTS, p_d)
     check_kernels(src, shapes_d, median_size(src), "distributed")
     results.update(check_interp(m_d, shapes_d))
+    # and at those of the distributed-input path (2e), whose rolled-back
+    # iteration need not match the balanced path's, with quality_vol
+    # also at its smallest launch there: a shard's input histogram
+    p_in = min([shapes_in[k][1] for k in CENTRAL] + [q_in[1]])
+    print(f"## distributed input: last launches (N, P) {shapes_in}, "
+          f"input histogram {q_in}")
+    src = shard_source(m_in, NPARTS, p_in)
+    check_kernels(src, shapes_in, median_size(src), "distributed input")
+    check_kernels(src, {"quality_vol": q_in}, median_size(src),
+                  "distributed input histogram", names=("quality_vol",))
+    check_interp(m_in, shapes_in)
     print(f"## phase 3 done at {time.perf_counter() - t0:.1f} s", flush=True)
     small_f64_runs()
     print(f"## phase 4 done at {time.perf_counter() - t0:.1f} s", flush=True)

@@ -4,10 +4,11 @@ NVIDIA H100.
 The package keeps the module layout of the JAX package (`core/`, `ops/`,
 `kernels/`, `models/`, `io/`, `utils/`) so every function has a
 counterpart under the same name. Meshes are dataclasses of tensors on one
-explicit device; operators are plain functions on tensors. The three
-Pallas kernels the centralized adaptation reaches are hand-written CUDA
-kernels here (`csrc/`, bound through `kernels/`), each beside a plain
-PyTorch version of the same function.
+explicit device; operators are plain functions on tensors. The four
+Pallas kernels of the JAX package (`quality_vol`, `collapse_cavity`,
+`split_midpoint`, `interp_bary`), which every adaptation path reaches,
+are hand-written CUDA kernels here (`csrc/`, bound through `kernels/`),
+each beside a plain PyTorch version of the same function.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 with no device given and no CUDA available they raise.

@@ -1,21 +1,25 @@
 """CLI: `python -m parmmg_tpu_torch input.mesh [-sol met.sol] [options]
 [-out out.mesh]`.
 
-Counterpart of `parmmg_tpu/__main__.py` for centralized input and output,
-with the same flag names: load → adapt on the GPU → save, printing the
-reference-style quality and edge-length histograms. Sweeps are
-active-set (frontier) sweeps unless `-nofrontier` is given. `-nparts N`
-adapts on N stacked shards, rebalancing between iterations (interface
-displacement, `-nlayers`; the graph cut on the last iteration; a full
-re-cut past `-groups-ratio` or the `-balance` band), and writes the
-merged mesh; `-nobalance` keeps the interfaces where the partition put
-them. `-field f.sol` carries solution fields through the adaptation
-and writes them as `<out>.fields.sol`; `-ls [iso]` splits the mesh along
-the level set given by `-sol` before adapting; a `.vtu` name reads or
-writes ASCII VTK. Flags of paths the port does not carry yet
-(distributed I/O, checkpoints, renumbering, partitioning output) are
-accepted by the parser and refused with `NotImplementedError` naming the
-ROADMAP item that brings them.
+Counterpart of `parmmg_tpu/__main__.py`, with the same flag names: load
+→ adapt on the GPU → save, printing the reference-style quality and
+edge-length histograms. Sweeps are active-set (frontier) sweeps unless
+`-nofrontier` is given. `-nparts N` adapts on N stacked shards,
+rebalancing between iterations (interface displacement, `-nlayers`; the
+graph cut on the last iteration; a full re-cut past `-groups-ratio` or
+the `-balance` band); `-nobalance` keeps the interfaces where the
+partition put them. `-field f.sol` carries solution fields through the
+adaptation and writes them as `<out>.fields.sol`; `-ls [iso]` splits the
+mesh along the level set given by `-sol` before adapting; a `.vtu` name
+reads or writes ASCII VTK; `.meshb`/`.solb` names read or write binary
+Medit. `-rn` renumbers the tets along the Morton curve first.
+`-pure-partitioning` writes the per-rank files `<out>.<r>.mesh` (and
+their metrics) of the Morton partition and stops; `-distributed-input`
+reads such files `<input>.<r>.mesh` (metric `<sol>.<r>.sol`) and writes
+per-rank output unless `-centralized-output` is given;
+`-distributed-output` writes per-rank files (or a `.pvtu`) after any
+input. The checkpoint flags are accepted by the parser and refused with
+`NotImplementedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
         "of parmmg_tpu)",
     )
     p.add_argument("input", nargs="?", default=None,
-                   help="input .mesh (Medit ASCII)")
+                   help="input .mesh/.meshb (Medit) or .vtu")
     p.add_argument("-out", "-o", dest="out", default=None,
                    help="output mesh name (default <input>.o.mesh)")
     p.add_argument("-sol", "-met", dest="sol", default=None,
@@ -73,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for parity (no non-FE configurations "
                    "are ever created)")
     p.add_argument("-rn", dest="renumber", action="store_true",
-                   help="Morton renumbering (not ported yet)")
+                   help="Morton-order renumbering of the tets for "
+                   "locality")
     p.add_argument("-noinsert", action="store_true")
     p.add_argument("-noswap", action="store_true")
     p.add_argument("-nomove", action="store_true")
@@ -104,14 +109,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-mesh-size", dest="mesh_size", type=int, default=None,
                    help="minimum elements per shard before the run is "
                    "distributed (smaller meshes grow on one shard first)")
-    p.add_argument("-pure-partitioning", action="store_true")
+    p.add_argument("-pure-partitioning", action="store_true",
+                   help="partition and save the per-rank files only, "
+                   "no remeshing")
     p.add_argument("-distributed-output", dest="dist_out",
-                   action="store_true")
+                   action="store_true",
+                   help="save per-rank name.<rank>.mesh files (or a "
+                   ".pvtu)")
     p.add_argument("-centralized-output", dest="cent_out",
                    action="store_true",
-                   help="centralized output (the default of this port)")
+                   help="save one merged mesh (the default after "
+                   "centralized input)")
     p.add_argument("-distributed-input", dest="dist_in",
-                   action="store_true")
+                   action="store_true",
+                   help="input is per-rank name.<rank>.mesh files")
     p.add_argument("-ls", type=float, nargs="?", const=0.0, default=None,
                    help="level-set discretization at the given isovalue "
                    "(the -sol file is the level set)")
@@ -124,13 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of paths not in this slice: (flag, dest, "is set" test, ROADMAP
 # item that brings it)
 _REFUSED = (
-    ("-distributed-output", "dist_out", bool,
-     "queue 1, item 12 (distributed I/O)"),
-    ("-distributed-input", "dist_in", bool,
-     "queue 1, item 12 (distributed I/O)"),
-    ("-pure-partitioning", "pure_partitioning", bool,
-     "queue 1, item 12 (partitioning output)"),
-    ("-rn", "renumber", bool, "queue 1, item 12 (SFC renumbering)"),
     ("-ckpt", "ckpt", lambda v: v is not None,
      "queue 1, item 15 (checkpoint/resume)"),
     ("-ckpt-every", "ckpt_every", lambda v: v is not None,
@@ -194,7 +198,7 @@ def main(argv=None, device=None) -> int:
     from .io import medit, parsop, vtk
     from .models.adapt import adapt
     from .models.distributed import (DistOptions, adapt_distributed,
-                                     merge_adapted)
+                                     adapt_stacked_input)
     from .ops import quality
     from .utils.timing import Timers
 
@@ -238,8 +242,12 @@ def main(argv=None, device=None) -> int:
     if args.field:
         fields, field_ncomp = medit.load_fields(args.field)
 
+    mesh = None
     with timers.phase("input"):
-        if args.ls is not None:
+        if args.dist_in:
+            stacked, comm = medit.load_mesh_distributed(
+                args.input, args.nparts, metpath=args.sol, device=device)
+        elif args.ls is not None:
             # in ls mode the sol file is the level set
             raw = medit.read_mesh(args.input)
             ls = None
@@ -262,14 +270,42 @@ def main(argv=None, device=None) -> int:
             mesh = mesh.replace(fields=pad.to(device),
                                 field_ncomp=tuple(field_ncomp))
 
+    if (args.ls is not None or args.pure_partitioning) and mesh is None:
+        print(f"{'-ls' if args.ls is not None else '-pure-partitioning'} "
+              "requires centralized input", file=sys.stderr)
+        return 1
     if args.ls is not None:
         from .models.levelset import discretize_levelset
 
         with timers.phase("level-set"):
             mesh = discretize_levelset(mesh, isovalue=args.ls)
 
+    if args.renumber and mesh is not None:
+        from .core.adjacency import build_adjacency
+        from .parallel.partition import renumber_sfc
+
+        with timers.phase("renumbering"):
+            mesh = build_adjacency(renumber_sfc(mesh))
+
+    if args.pure_partitioning:
+        from .parallel.distribute import split_mesh
+        from .parallel.partition import sfc_partition
+
+        with timers.phase("partitioning"):
+            part = sfc_partition(mesh, args.nparts).cpu().numpy()
+            stacked, comm = split_mesh(mesh, part, args.nparts)
+        with timers.phase("output"):
+            medit.save_mesh_distributed(stacked, comm, out,
+                                        with_met=mesh.met_set)
+        timers.report()
+        return 0
+
+    mesh_out = None
     with timers.phase("remeshing"):
-        if args.nparts > 1:
+        if args.dist_in:
+            stacked, comm, info = adapt_stacked_input(stacked, comm, opts,
+                                                      device=device)
+        elif args.nparts > 1:
             stacked, comm, info = adapt_distributed(mesh, opts,
                                                     device=device)
         else:
@@ -295,21 +331,61 @@ def main(argv=None, device=None) -> int:
 
     if not args.noout:
         with timers.phase("output"):
-            if args.nparts > 1:
-                mesh_out = merge_adapted(stacked, comm)
-            # a .pvtu name without -distributed-output gets the .vtu
-            # content, as in the JAX package
-            vtu = out.endswith((".vtu", ".pvtu"))
-            if vtu:
-                vtk.save_vtu(mesh_out, out)
-            else:
-                medit.save_mesh(mesh_out, out)
-                medit.save_met(mesh_out, medit.met_filename(out))
-            if args.field and not vtu:
-                medit.save_fields(mesh_out,
-                                  os.path.splitext(out)[0] + ".fields.sol")
+            _save_output(args, out, mesh_out,
+                         None if mesh_out is not None else (stacked, comm))
     timers.report()
     return 0
+
+
+def _save_output(args, out: str, mesh_out, dist) -> None:
+    """The output block: per-rank files after distributed input or with
+    `-distributed-output` (`-centralized-output` overrides), else one
+    merged mesh; `.vtu`/`.pvtu` names write VTK; `-field` writes the
+    fields next to each mesh written. `dist` is (stacked, comm) of a
+    distributed run, None after a centralized one."""
+    from .io import medit, vtk
+    from .models.distributed import merge_adapted
+    from .parallel.distribute import stack_meshes, unstack_mesh
+
+    distributed_out = not args.cent_out and (args.dist_out or args.dist_in)
+    vtu = out.endswith((".vtu", ".pvtu"))
+    if distributed_out and dist is not None:
+        if vtu:
+            vtk.save_pvtu(*dist, out)
+        else:
+            medit.save_mesh_distributed(*dist, out, with_met=True)
+    elif distributed_out:
+        # a single-part run asked for distributed output: one rank file
+        one = medit.shard_filename(out, 0)
+        if out.endswith(".pvtu"):
+            # a .pvtu indexes .vtu pieces: the piece and its index
+            vtk.save_pvtu(stack_meshes([mesh_out]), None, out)
+        elif vtu:
+            vtk.save_vtu(mesh_out, one)
+        else:
+            medit.save_mesh(mesh_out, one)
+            medit.save_met(mesh_out, medit.met_filename(one))
+    else:
+        if mesh_out is None:
+            mesh_out = merge_adapted(*dist)
+        # a .pvtu name without distributed output gets the .vtu content,
+        # as in the JAX package
+        if vtu:
+            vtk.save_vtu(mesh_out, out)
+        else:
+            medit.save_mesh(mesh_out, out)
+            medit.save_met(mesh_out, medit.met_filename(out))
+    if not args.field or vtu:
+        return
+    if distributed_out and dist is not None:
+        # per-rank fields next to the per-rank meshes, in their numbering
+        for r, shard in enumerate(unstack_mesh(dist[0])):
+            medit.save_fields(shard, os.path.splitext(
+                medit.shard_filename(out, r))[0] + ".fields.sol")
+    else:
+        if mesh_out is None:
+            mesh_out = merge_adapted(*dist)
+        medit.save_fields(mesh_out, os.path.splitext(out)[0] + ".fields.sol")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ A wrapper launches its kernel for CUDA tensors (or raises: a failed build
 or launch is a `KernelError`) and takes the plain version only for
 tensors on the CPU. `LAUNCHES` counts the kernel
 launches per name, `SHAPES` holds each one's last (rows, table rows
-[, shards]), `ROWS` every launch's stream rows and `EMPTY` the calls on
+[, shards]), `LOG` every launch's and `EMPTY` the calls on
 an empty stream, which launch nothing.
 """
 
@@ -25,7 +25,7 @@ from .build import SOURCES as NAMES  # noqa: F401
 from .build import (  # noqa: F401
     EMPTY,
     LAUNCHES,
-    ROWS,
+    LOG,
     SHAPES,
     KernelError,
     build_all,

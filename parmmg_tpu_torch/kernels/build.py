@@ -9,10 +9,11 @@ kernel is rebuilt. `build_all()` compiles each source to an object with
 its own `nvcc`, all started together, then links the objects.
 
 Every wrapper adds one to `LAUNCHES[name]` where it launches its kernel
-and nowhere else, records the launch's (stream rows, table rows) in
-`SHAPES[name]` — (rows per shard, table rows per shard, shards) for a
-stacked launch — and its stream rows in `ROWS[name]`; a call on an empty
-stream launches nothing and adds one to `EMPTY[name]` instead.
+and nowhere else, and records the launch's shape, (stream rows, table
+rows) — (rows per shard, table rows per shard, shards) for a stacked
+launch — in `SHAPES[name]`, the last one, and in `LOG[name]`, every
+one; a call on an empty stream launches nothing and adds one to
+`EMPTY[name]` instead.
 `reset_launches()` zeroes them all.
 """
 
@@ -48,7 +49,7 @@ NVCC_FLAGS = [
 
 LAUNCHES = {name: 0 for name in SOURCES}
 SHAPES: dict = {}
-ROWS = {name: [] for name in SOURCES}
+LOG = {name: [] for name in SOURCES}
 EMPTY = {name: 0 for name in SOURCES}
 # compiler log of each source (register and spill counts, `-Xptxas -v`),
 # kept beside the library so that a process loading a library built
@@ -65,7 +66,7 @@ class KernelError(Exception):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-        ROWS[k].clear()
+        LOG[k].clear()
         EMPTY[k] = 0
     SHAPES.clear()
 
@@ -74,9 +75,9 @@ def count(name: str, rows: int, table_rows: int, shards=None) -> None:
     """Book one launch of kernel `name` over `rows` stream rows (per
     shard, for a stacked launch over `shards` shards)."""
     LAUNCHES[name] += 1
-    ROWS[name].append(rows)
     SHAPES[name] = ((rows, table_rows) if shards is None
                     else (rows, table_rows, shards))
+    LOG[name].append(SHAPES[name])
 
 
 def count_empty(name: str) -> None:

@@ -30,11 +30,18 @@ per-shard frontier masks are carried from sweep to sweep and, through
 the compaction and the migration (as global ids), from one iteration to
 the next; a drained carry skips the iteration's sweeps.
 
-Not ported: checkpoints, fault plans, telemetry, the governor and the
-communicator checks (`check_comm`), refused with `NotImplementedError`
-naming their ROADMAP items. A `CapacityError` that escapes an iteration
-rolls it back as any other `RuntimeError` does (the JAX package's
-iteration-level grow-and-retry comes with the failsafe layer).
+`adapt_stacked_input` is the entry for a mesh that comes distributed
+(`-distributed-input`, per-rank files read by
+`io.medit.load_mesh_distributed`): per-shard analysis, the cross-shard
+feature pass, the metric and the same iterations. With
+`DistOptions.check_comm` every iteration rebuilds the node tables and
+runs `parallel.chkcomm.assert_comm_ok` after the interpolation.
+
+Not ported: checkpoints and resume, fault plans, telemetry and the
+governor, refused with `NotImplementedError` naming their ROADMAP items.
+A `CapacityError` that escapes an iteration rolls it back as any other
+`RuntimeError` does (the JAX package's iteration-level grow-and-retry
+comes with the failsafe layer).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from .. import resolve_device
 from ..core import adjacency, tags
 from ..core.mesh import Mesh, compact, compact_aux
 from ..ops import analysis, interp, quality
+from ..parallel import chkcomm
 from ..parallel import migrate as migrate_mod
 from ..parallel import partition as partition_mod
 from ..parallel.distribute import (
@@ -105,8 +113,8 @@ class DistOptions(AdaptOptions):
     # (partition.stacked_graph_colors) instead of advancing fronts. The
     # last iteration always takes the graph cut.
     repartitioning: int = REDISTRIBUTION_IFC_DISPLACEMENT
-    # communicator check every iteration: refused (ROADMAP queue 1,
-    # item 12, parallel/chkcomm.py)
+    # rebuild the node tables and check every communicator invariant
+    # (`parallel.chkcomm.assert_comm_ok`) after each interpolation
     check_comm: bool = False
     # minimum elements per shard: a smaller mesh is first grown on one
     # shard, so frozen interfaces stay a thin fraction of each shard
@@ -366,16 +374,8 @@ def adapt_distributed(mesh: Mesh, opts: Optional[DistOptions] = None,
     device = resolve_device(device)
     opts = opts or DistOptions()
     check_supported(opts)
-    if opts.check_comm:
-        raise NotImplementedError(
-            "DistOptions.check_comm (communicator checks every iteration) "
-            "is not ported yet: ROADMAP queue 1, item 12 "
-            "(parallel/chkcomm.py) brings it")
     mesh = mesh.to(device)
-    if opts.mem_budget_mb is None:
-        derived = default_mem_budget_mb(device)
-        if derived is not None:
-            opts = dataclasses.replace(opts, mem_budget_mb=derived)
+    opts = _with_budget(opts, device)
     nparts = opts.nparts
 
     mesh = adjacency.build_adjacency(mesh)
@@ -410,6 +410,73 @@ def adapt_distributed(mesh: Mesh, opts: Optional[DistOptions] = None,
     return stacked, rebuild_comm(stacked, icap), info
 
 
+def _with_budget(opts: DistOptions, device) -> DistOptions:
+    """`opts` with the memory budget derived from the device when unset."""
+    if opts.mem_budget_mb is None:
+        derived = default_mem_budget_mb(device)
+        if derived is not None:
+            opts = dataclasses.replace(opts, mem_budget_mb=derived)
+    return opts
+
+
+def adapt_stacked_input(stacked: Mesh, comm: Optional[ShardComm],
+                        opts: Optional[DistOptions] = None, device=None):
+    """Adapt a mesh that comes distributed: a stacked mesh with PARBDY
+    interface tags and `vglob` set on the interface vertices, as
+    `parallel.distribute.stack_loaded_shards` (or
+    `io.medit.load_mesh_distributed`) builds it from per-rank files, on
+    `device` (default: the GPU — raises when there is none).
+
+    Per-shard analysis, the cross-shard feature agreement, the metric,
+    the hausd of the global bounding box, then the iterations of
+    `adapt_distributed` (balancing between them unless `nobalancing`),
+    with the node tables sized like the given `comm`'s. `nparts` is the
+    number of shards. Returns (stacked, comm, info) like
+    `adapt_distributed`."""
+    device = resolve_device(device)
+    opts = opts or DistOptions()
+    check_supported(opts)
+    opts = _with_budget(dataclasses.replace(
+        opts, nparts=stacked.vert.shape[0]), device)
+    stacked = stacked.to(device)
+
+    ecap0 = int(stacked.tet.shape[1] * 1.6) + 64
+    shards = [analysis.analyze(m, ang=opts.angle, opnbdy=opts.opnbdy)
+              for m in unstack_mesh(stacked)]
+    if opts.angle is not None:
+        shards = analysis.cross_shard_features(shards, ang=opts.angle)
+    shards = [prepare_metric(m, opts, ecap0) for m in shards]
+    fc, ec = max(m.fcap for m in shards), max(m.ecap for m in shards)
+    if any(m.fcap != fc or m.ecap != ec for m in shards):
+        # the analysis grew some shards' tables: uniform capacities again
+        shards = [m.with_capacity(fcap=fc, ecap=ec) for m in shards]
+    stacked = stack_meshes(shards)
+    if opts.hausd is not None:
+        hausd = float(opts.hausd)
+    else:  # the bounding box of all shards
+        w = stacked.vmask[..., None]
+        lo = torch.where(w, stacked.vert, torch.inf).amin(dim=(0, 1))
+        hi = torch.where(w, stacked.vert, -torch.inf).amax(dim=(0, 1))
+        diag = float(torch.linalg.norm(hi - lo))
+        hausd = 0.01 * (diag if diag > 0 else 1.0)
+    hausd = local_hausd_table(stacked, opts, hausd)
+    h_in = quality.merge_stacked_histograms(
+        [quality.quality_histogram(m) for m in shards])
+
+    shards = _presize_for_target(shards, opts)
+    history: List[dict] = []
+    balance: List[dict] = []
+    # the given tables' width (interfaces only shrink while frozen), so
+    # the rebuilt tables keep one shape across iterations
+    shards, status, icap = _iteration_loop(
+        shards, opts, hausd, history, balance,
+        icap0=None if comm is None else comm.icap)
+    stacked = assign_global_ids(stack_meshes(shards))
+    info = _finish_dist_info(shards, history, h_in, status)
+    info["balance"] = balance
+    return stacked, rebuild_comm(stacked, icap), info
+
+
 def _balance_policy(opts: DistOptions):
     """The run's closed-loop balancer (one instance: its state is the
     hysteresis), or None when the band is off or nothing rebalances."""
@@ -420,7 +487,8 @@ def _balance_policy(opts: DistOptions):
 
 
 def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
-                    history: List[dict], balance: List[dict]):
+                    history: List[dict], balance: List[dict],
+                    icap0: Optional[int] = None):
     """The `niter` remesh/interpolate/rebalance iterations. Each is
     validated at its boundary; a numeric, capacity or budget failure
     (ValueError, RuntimeError — `CapacityError` included —,
@@ -429,8 +497,9 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
     launch raises `KernelError`, which is none of these and ends the
     run. With `opts.frontier` the changed masks are carried from one
     iteration to the next (None = all active at the start and after a
-    rollback, whose shards predate the carry). Returns (shards, status,
-    icap: the node tables' width the last rebalancing left, or None)."""
+    rollback, whose shards predate the carry). `icap0` is the node
+    tables' width to start from (None: sized to the need). Returns
+    (shards, status, icap: the width the last rebuild left, or None)."""
     emult = [1.6]
     status = tags.ReturnStatus.SUCCESS
     policy = _balance_policy(opts)
@@ -438,7 +507,7 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
     # iteration stay as they were
     last_good = shards
     fr_carry = None
-    icap = None
+    icap = icap0
     for it in range(opts.niter):
         try:
             shards, icap, fr_carry = _one_iteration(
@@ -478,6 +547,13 @@ def _one_iteration(shards: List[Mesh], opts: DistOptions, hausd,
         packed = [compact_aux(m, c) for m, c in zip(shards, fr)]
         shards, fr = [p[0] for p in packed], [p[1] for p in packed]
     shards = interp_phase(shards, old, opts)
+    if opts.check_comm:
+        # the node tables rebuilt from the persistent global ids, then
+        # every communicator invariant
+        stacked = stack_meshes(shards)
+        comm = rebuild_comm(stacked, icap)
+        icap = comm.icap
+        chkcomm.assert_comm_ok(stacked, comm, tol=1e-6)
     if not opts.nobalancing and opts.nparts > 1:
         stacked, icap, fr = _rebalance(
             stack_meshes(shards), opts, history, it, icap,

@@ -4,13 +4,16 @@ Counterpart of the single-shard part of `parmmg_tpu/ops/analysis.py`
 (`analyze` and the functions it calls). The surface is analyzed with one
 sort of the tria-edge keys; normals are oriented by matching each tria
 to its owner tet face; detected feature edges are appended to
-`mesh.edge`. The cross-shard passes come with the distributed slice.
+`mesh.edge`. The cross-shard passes (`cross_shard_features`,
+`cross_shard_singul`) are host numpy sort-merge joins over all shards'
+interface rows keyed by global vertex ids, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core import tags
@@ -332,6 +335,225 @@ def detect_features(mesh: Mesh, ang: float = ANG_DEFAULT) -> Mesh:
         mesh = mesh.with_capacity(ecap=int((ned0 + n_new) * 1.3) + 8)
     mesh = _apply_features(mesh, first, prs, etag, new_sel, match)
     return classify_corners(mesh, cos_ang)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def cross_shard_features(shards: list, ang: float = ANG_DEFAULT) -> list:
+    """Feature detection for surface edges split by a shard interface
+    (the `PMMG_setdhd` role): each side of an interface-crossing surface
+    edge sees only one of its two boundary trias, so the per-shard
+    detection skips it; here the two halves meet across the shards,
+    keyed by global vertex ids (a host sort-merge join), and the
+    singularity classification reruns on the global counts
+    (`cross_shard_singul`). Takes and returns a list of per-shard
+    meshes already through `analyze()`."""
+    cos_ang = math.cos(math.radians(ang))
+    # (gid pair, normal, ref, shard, local slots) rows of every shard
+    blk = []
+    for s, m in enumerate(shards):
+        unit, _, ok = tria_normals(m)
+        unit, ok = _np(unit), _np(ok)
+        tria, trref = _np(m.tria), _np(m.trref)
+        vt, vg = _np(m.vtag), _np(m.vglob)
+        par = ((vt & tags.PARBDY) != 0) & (vg >= 0)
+        for e0, e1 in ((0, 1), (1, 2), (0, 2)):
+            a, b = tria[:, e0], tria[:, e1]
+            idx = np.nonzero(ok & par[a] & par[b])[0]
+            if not len(idx):
+                continue
+            la, lb = a[idx].astype(np.int64), b[idx].astype(np.int64)
+            ga, gb = vg[la].astype(np.int64), vg[lb].astype(np.int64)
+            swap = ga > gb
+            blk.append((
+                np.where(swap, gb, ga), np.where(swap, ga, gb),
+                unit[idx], trref[idx].astype(np.int64),
+                np.full(len(idx), s, np.int64),
+                np.where(swap, lb, la), np.where(swap, la, lb),
+            ))
+    if not blk:
+        return cross_shard_singul(shards, cos_ang)
+    glo, ghi, nrm, ref, shd, llo, lhi = (
+        np.concatenate([b[k] for b in blk]) for k in range(7))
+
+    # group the rows by gid-pair key
+    order = np.lexsort((ghi, glo))
+    glo, ghi, nrm, ref, shd, llo, lhi = (
+        x[order] for x in (glo, ghi, nrm, ref, shd, llo, lhi))
+    newgrp = np.concatenate(
+        [[True], (glo[1:] != glo[:-1]) | (ghi[1:] != ghi[:-1])])
+    starts = np.nonzero(newgrp)[0]
+    gid = np.cumsum(newgrp) - 1
+    counts = np.diff(np.append(starts, len(glo)))
+    # cross-shard groups only: same-shard pairs had the local detection
+    cross = (np.maximum.reduceat(shd, starts)
+             > np.minimum.reduceat(shd, starts))
+    etag_g = np.zeros(len(starts), np.int64)
+    two = counts == 2
+    i0 = starts[two]
+    if len(i0):
+        dot = np.einsum("ij,ij->i", nrm[i0], nrm[i0 + 1])
+        etag_g[two] = (np.where(dot < cos_ang, tags.RIDGE, 0)
+                       | np.where(ref[i0] != ref[i0 + 1], tags.REF, 0))
+    etag_g[counts > 2] = tags.NOM | tags.REQUIRED  # cross-shard NOM fan
+    etag_g[~cross] = 0
+
+    row_etag = etag_g[gid]
+    emit = row_etag != 0
+    out = []
+    for s, m in enumerate(shards):
+        sel = emit & (shd == s)
+        if sel.any():
+            pairs = np.stack([llo[sel], lhi[sel]], axis=1)
+            m = _merge_host_edges(m, pairs, row_etag[sel])
+            m = classify_corners(m, cos_ang)
+        out.append(m)
+    return cross_shard_singul(out, cos_ang)
+
+
+def cross_shard_singul(shards: list, cos_ang: float) -> list:
+    """Singularity classification of interface points with global
+    feature counts (the `PMMG_singul` role): a feature line crossing an
+    interface looks like a line end on both sides, so the feature-edge
+    degree and direction sum of every interface vertex are reduced over
+    all shards (interface-interface edges, replicated per side, counted
+    once by their global key) and the corner rule rerun on them.
+    Input-REQUIRED corners are never unset."""
+    feature = tags.RIDGE | tags.REF | tags.NOM
+    gids_all, dirs_all = [], []
+    seen_pp = np.empty(0, np.int64)
+    for m in shards:
+        ed = _np(m.edge)
+        live = _np(m.edmask) & ((_np(m.edtag) & feature) != 0)
+        if not live.any():
+            continue
+        e = ed[live]
+        vt, vg, v = _np(m.vtag), _np(m.vglob), _np(m.vert)
+        a, b = e[:, 0], e[:, 1]
+        d = v[b] - v[a]
+        u = d / np.maximum(np.linalg.norm(d, axis=1), 1e-30)[:, None]
+        par_a = ((vt[a] & tags.PARBDY) != 0) & (vg[a] >= 0)
+        par_b = ((vt[b] & tags.PARBDY) != 0) & (vg[b] >= 0)
+        both = par_a & par_b
+        # replicated interface edges count once by their global key
+        if both.any():
+            ga, gb = vg[a[both]], vg[b[both]]
+            glo, ghi = np.minimum(ga, gb), np.maximum(ga, gb)
+            keys = glo.astype(np.int64) * (2**31) + ghi
+            _, first = np.unique(keys, return_index=True)
+            fresh = np.zeros(len(keys), bool)
+            fresh[first] = True
+            fresh &= ~np.isin(keys, seen_pp)
+            seen_pp = np.concatenate([seen_pp, keys[fresh]])
+            ub = u[both][fresh]
+            gids_all.append(vg[a[both]][fresh])
+            dirs_all.append(ub)
+            gids_all.append(vg[b[both]][fresh])
+            dirs_all.append(-ub)
+        only_a = par_a & ~both
+        only_b = par_b & ~both
+        if only_a.any():
+            gids_all.append(vg[a[only_a]])
+            dirs_all.append(u[only_a])
+        if only_b.any():
+            gids_all.append(vg[b[only_b]])
+            dirs_all.append(-u[only_b])
+
+    if not gids_all:
+        return shards
+    gids = np.concatenate(gids_all)
+    dirs = np.concatenate(dirs_all)
+    ug, inv = np.unique(gids, return_inverse=True)
+    inv = inv.reshape(-1)
+    deg = np.bincount(inv, minlength=len(ug))
+    acc = np.zeros((len(ug), 3))
+    np.add.at(acc, inv, dirs)
+    bend2 = np.sum(acc * acc, axis=1)
+    sharp = bend2 > (2.0 - 2.0 * cos_ang)
+    corner_g = (deg == 1) | (deg >= 3) | ((deg == 2) & sharp)
+    gmax = int(ug.max()) + 1
+    is_corner = np.zeros(gmax, bool)
+    is_corner[ug] = corner_g
+    has_feat = np.zeros(gmax, bool)
+    has_feat[ug] = True
+
+    out = []
+    for m in shards:
+        vt = _np(m.vtag).copy()
+        vg = _np(m.vglob)
+        sel = (((vt & tags.PARBDY) != 0) & (vg >= 0) & (vg < gmax)
+               & _np(m.vmask))
+        gsel = np.clip(vg, 0, gmax - 1)
+        want = sel & is_corner[gsel]
+        # clear the locally guessed corners of interface feature vertices
+        # (never user-required ones), then set the agreed ones
+        clear = sel & has_feat[gsel] & ~want & ((vt & tags.REQUIRED) == 0)
+        vt[clear] &= ~tags.CORNER
+        vt[want] |= tags.CORNER | tags.BDY
+        out.append(m.replace(vtag=torch.as_tensor(vt, device=m.device)))
+    return out
+
+
+def _merge_host_edges(mesh: Mesh, pairs, etags) -> Mesh:
+    """OR tags into the matching stored feature edges and append the
+    missing ones, then re-propagate the vertex tags (the host variant of
+    `_apply_features` for the cross-shard pass): a sort-merge join on
+    canonical lo * pcap + hi keys."""
+    edge = _np(mesh.edge)
+    edmask = _np(mesh.edmask).copy()
+    edtag = _np(mesh.edtag).copy()
+    edref = _np(mesh.edref)
+
+    P = np.int64(mesh.pcap)
+    lo = np.minimum(pairs[:, 0], pairs[:, 1]).astype(np.int64)
+    hi = np.maximum(pairs[:, 0], pairs[:, 1]).astype(np.int64)
+    key = lo * P + hi
+    # dedup the incoming pairs, OR-combining their tags
+    order = np.argsort(key, kind="stable")
+    ks, ts = key[order], np.asarray(etags, np.int64)[order]
+    first = np.concatenate([[True], ks[1:] != ks[:-1]])
+    starts = np.nonzero(first)[0]
+    ukey = ks[starts]
+    utag = np.bitwise_or.reduceat(ts, starts)
+
+    live = np.nonzero(edmask)[0]
+    ekey = (np.minimum(edge[live, 0], edge[live, 1]).astype(np.int64) * P
+            + np.maximum(edge[live, 0], edge[live, 1]))
+    eorder = np.argsort(ekey)
+    if len(ekey):
+        pos = np.clip(np.searchsorted(ekey[eorder], ukey), 0, len(ekey) - 1)
+        hit = ekey[eorder[pos]] == ukey
+        edtag[live[eorder[pos[hit]]]] |= utag[hit].astype(edtag.dtype)
+    else:
+        hit = np.zeros(len(ukey), bool)
+
+    n_add = int((~hit).sum())
+    ned = int(edmask.sum())
+    if ned + n_add > mesh.ecap:
+        mesh = mesh.with_capacity(ecap=int((ned + n_add) * 1.3) + 8)
+        e2 = _np(mesh.edtag).copy()
+        e2[: len(edtag)] = edtag
+        edmask, edtag = _np(mesh.edmask).copy(), e2
+        edge = _np(mesh.edge)
+        edref = _np(mesh.edref)
+    edge = edge.copy()
+    edref = edref.copy()
+    if n_add:
+        slots = np.nonzero(~edmask)[0][:n_add]
+        akey = ukey[~hit]
+        edge[slots, 0] = akey // P
+        edge[slots, 1] = akey % P
+        edtag[slots] = utag[~hit]
+        edref[slots] = 0
+        edmask[slots] = True
+    dev = mesh.device
+    mesh = mesh.replace(edge=torch.as_tensor(edge, device=dev),
+                        edtag=torch.as_tensor(edtag, device=dev),
+                        edref=torch.as_tensor(edref, device=dev),
+                        edmask=torch.as_tensor(edmask, device=dev))
+    return _tag_feature_vertices(mesh)
 
 
 def analyze(mesh: Mesh, ang: float | None = ANG_DEFAULT,

@@ -3,9 +3,10 @@ shards, derive the node communicator tables, number new vertices, and
 merge the shards back into one mesh.
 
 Counterpart of `parmmg_tpu/parallel/distribute.py` (`ShardComm`,
-`split_mesh`, `rebuild_comm`, `assign_global_ids`, `merge_shards`).
-`split_mesh` and `merge_shards` are host numpy, as there; the table
-rebuild and the numbering run on the mesh's device.
+`split_mesh`, `rebuild_comm`, `assign_global_ids`, `merge_shards`,
+`stack_loaded_shards`). `split_mesh`, `merge_shards` and the decisions
+of `stack_loaded_shards` are host numpy, as there; the table rebuild and
+the numbering run on the mesh's device.
 
 A stacked mesh is a `Mesh` whose leaves carry a leading shard axis
 [D, cap, ...] with uniform capacities across shards. `stack_meshes` and
@@ -310,6 +311,117 @@ def assign_global_ids(stacked: Mesh) -> Mesh:
     rank = torch.cumsum(new.to(torch.int64), dim=1) - 1
     newid = (offs[:, None] + rank).to(torch.int32)
     return stacked.replace(vglob=torch.where(new, newid, vglob))
+
+
+def stack_loaded_shards(raws, dtype=None,
+                        device=None) -> Tuple[Mesh, ShardComm]:
+    """Per-rank loaded `io.medit.RawMesh`es (with their
+    `ParallelCommunicator*` sections) -> (stacked Mesh, ShardComm) on
+    `device` (default: the GPU), with capacities 1.5x the largest
+    shard's counts.
+
+    Interface vertices get PARBDY tags and a shared global numbering,
+    interface trias of the face-comm lists are tagged frozen, and the
+    node tables are derived. Vertex identity across ranks comes from the
+    stored global ids of the node communicators when they have them,
+    else from exact coordinate matching (per-rank files print shared
+    coordinates identically on both sides)."""
+    from ..io.medit import raw_to_mesh
+    from ..ops.analysis import mark_boundary
+
+    D = len(raws)
+    loc_ids: List[np.ndarray] = []
+    gids: list = []
+    ifc_trias: List[np.ndarray] = []
+    for raw in raws:
+        # face-comm tria lists restore the PARBDY|NOSURF tagging of the
+        # synthetic interface trias whichever list identifies the
+        # vertices (`medit.save_mesh_distributed` writes both)
+        if raw.face_comms:
+            tr = np.concatenate([np.asarray(c[1], np.int64)
+                                 for c in raw.face_comms])
+            ifc_trias.append(np.unique(tr))
+        else:
+            ifc_trias.append(np.zeros(0, np.int64))
+        if raw.node_comms:
+            loc = np.concatenate([np.asarray(c[1], np.int64)
+                                  for c in raw.node_comms])
+            gid = np.concatenate([np.asarray(c[2], np.int64)
+                                  for c in raw.node_comms])
+            loc, first = np.unique(loc, return_index=True)
+            loc_ids.append(loc)
+            gids.append(gid[first] if (gid >= 0).all() and len(gid)
+                        else None)
+        elif raw.face_comms:
+            loc_ids.append(np.unique(raw.trias[ifc_trias[-1]].reshape(-1)))
+            gids.append(None)
+        else:
+            loc_ids.append(np.zeros(0, np.int64))
+            gids.append(None)
+
+    if any(g is None and len(lo) for g, lo in zip(gids, loc_ids)):
+        # the shared numbering from exact coordinate matching
+        coords = np.concatenate([raws[s].verts[loc_ids[s]]
+                                 for s in range(D)], axis=0)
+        _, inv = np.unique(coords, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        off = 0
+        gids = []
+        for s in range(D):
+            n = len(loc_ids[s])
+            gids.append(inv[off:off + n].astype(np.int64))
+            off += n
+
+    def cap(n):
+        return max(8, int(np.ceil(n * 1.5)))
+
+    pc = cap(max(len(r.verts) for r in raws))
+    tc = cap(max(len(r.tets) for r in raws))
+    fc = cap(max(len(r.trias) for r in raws))
+    ec = cap(max(max(len(r.edges), 8) for r in raws))
+
+    shards = []
+    for s, raw in enumerate(raws):
+        m = raw_to_mesh(raw, pcap=pc, tcap=tc, fcap=fc, ecap=ec,
+                        device=device,
+                        **({} if dtype is None else dict(dtype=dtype)))
+        vtag = _np(m.vtag).copy()
+        vtag[loc_ids[s]] |= tags.PARBDY
+        vglob = np.full(pc, -1, np.int32)
+        vglob[loc_ids[s]] = gids[s]
+        trtag = _np(m.trtag).copy()
+        if len(ifc_trias[s]):
+            ifc = ifc_trias[s]
+            trtag[ifc] |= tags.PARBDY | tags.REQUIRED | tags.NOSURF \
+                | tags.BDY
+            # a face-comm tria also listed in RequiredTriangles is a
+            # real-surface interface replica (PARBDYBDY)
+            bb = np.isin(ifc, raw.req_trias)
+            trtag[ifc[bb]] |= tags.PARBDYBDY
+            # user-required interface replicas carry no NOSURF and so are
+            # not in the face-comm list: their PARBDY|PARBDYBDY|BDY comes
+            # back from the interface vertex set
+            vtx_par = np.zeros(len(raw.verts), bool)
+            vtx_par[loc_ids[s]] = True
+            if len(raw.trias):
+                in_ifc = np.zeros(len(raw.trias), bool)
+                in_ifc[ifc] = True
+                ureq = np.zeros(len(raw.trias), bool)
+                ureq[raw.req_trias] = True
+                rep = ureq & ~in_ifc & vtx_par[raw.trias].all(axis=1)
+                trtag[np.nonzero(rep)[0]] |= (
+                    tags.PARBDY | tags.PARBDYBDY | tags.BDY)
+        dev = m.device
+        m = m.replace(vtag=torch.as_tensor(vtag, device=dev),
+                      vglob=torch.as_tensor(vglob, device=dev),
+                      trtag=torch.as_tensor(trtag, device=dev))
+        # PARBDYBDY: interface vertices that also lie on the true boundary
+        m = mark_boundary(adjacency.build_adjacency(m))
+        both = ((m.vtag & tags.PARBDY) != 0) & ((m.vtag & tags.BDY) != 0)
+        shards.append(m.replace(vtag=torch.where(
+            both, m.vtag | tags.PARBDYBDY, m.vtag)))
+    stacked = stack_meshes(shards)
+    return stacked, rebuild_comm(stacked)
 
 
 def merge_shards(stacked: Mesh, comm: ShardComm) -> Mesh:

@@ -40,6 +40,7 @@ from ..core.mesh import FACE_VERTS, Mesh
 from ..models.adapt import CapacityError
 from ..ops import common
 from ..ops.common import scatter, take, unique_oob
+from .comm import halo_max
 from .distribute import ShardComm, rebuild_comm, stack_meshes, unstack_mesh
 
 
@@ -56,31 +57,6 @@ def stacked_adjacency(stacked: Mesh) -> Mesh:
     """`build_adjacency` on every shard of a stacked mesh."""
     return stack_meshes([adjacency.build_adjacency(m)
                          for m in unstack_mesh(stacked)])
-
-
-# ---------------------------------------------------------------------------
-# stacked halo combine
-# ---------------------------------------------------------------------------
-
-def stacked_halo_max(vals: torch.Tensor, comm: ShardComm) -> torch.Tensor:
-    """[D,P] values -> [D,P] with each interface vertex holding the max
-    over its copies on all shards (the exchange is a gather on stacked
-    tensors)."""
-    ci = comm.comm_idx.long()                       # [D(s), D(r), I]
-    d = ci.shape[0]
-    safe = ci.clamp(min=0)
-    # recv[s, r, k] = vals[r, ci[r, s, k]]
-    src = torch.arange(d, device=vals.device)[None, :, None].expand(
-        safe.shape)
-    recv = vals[src, safe.transpose(0, 1)]
-    neutral = (torch.iinfo(vals.dtype).min if not vals.is_floating_point()
-               else -torch.inf)
-    recv = torch.where(ci.transpose(0, 1) >= 0, recv, neutral)
-    out = []
-    for s in range(d):
-        tgt = torch.where(ci[s] >= 0, ci[s], vals.shape[1]).reshape(-1)
-        out.append(scatter(vals[s], tgt, recv[s].reshape(-1), "max"))
-    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +227,7 @@ def displace_colors(stacked: Mesh, comm: ShardComm, nparts: int,
                 torch.full((pcap,), -1, dtype=torch.int32, device=dev),
                 idx, enc_t[s].repeat_interleave(4), "max"))
         venc = torch.where(par_v, torch.stack(venc), -1)
-        venc = torch.where(par_v, stacked_halo_max(venc, comm), -1)
+        venc = torch.where(par_v, halo_max(venc, comm.comm_idx), -1)
         best_ifc = torch.full_like(enc_t, -1)
         for f in range(4):
             fverts = tet[:, :, fv[f]]                          # [D,T,3]

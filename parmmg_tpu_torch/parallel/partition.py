@@ -1,7 +1,8 @@
 """Space-filling-curve mesh partitioning.
 
 Counterpart of `parmmg_tpu/parallel/partition.py` (`tet_morton_keys`,
-`metric_weights`, `sfc_partition`, `stacked_graph_colors`): tets are
+`metric_weights`, `sfc_partition`, `stacked_graph_colors`,
+`renumber_sfc`): tets are
 ordered by the Morton key of their barycenter and cut into contiguous
 ranges of equal weight — one stable sort and one prefix sum, or, on
 stacked shards, a histogram of Morton buckets and its prefix sum.
@@ -125,3 +126,13 @@ def stacked_graph_colors(stacked: Mesh, nparts: int, nbuckets: int = 4096):
         (mid * nparts / torch.clamp(total, min=1e-30)).to(torch.int32),
         0, nparts - 1)
     return torch.where(live, part_of_bucket[bucket.long()], -1)
+
+
+def renumber_sfc(mesh: Mesh) -> Mesh:
+    """Reorder the tet slots along the Morton curve of their barycenters
+    (one stable sort; dead slots last), for locality (`-rn`). The
+    adjacency is stale afterwards and set to -1: rebuild it."""
+    order = torch.argsort(tet_morton_keys(mesh), stable=True)
+    return mesh.replace(tet=mesh.tet[order], tref=mesh.tref[order],
+                        tmask=mesh.tmask[order],
+                        adja=torch.full_like(mesh.adja, -1))

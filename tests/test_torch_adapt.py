@@ -39,6 +39,7 @@ from parmmg_tpu_torch.io import medit as t_medit
 from parmmg_tpu_torch.io import vtk as t_vtk
 from parmmg_tpu_torch.models import adapt as t_adapt
 from parmmg_tpu_torch.models import levelset as t_ls
+from parmmg_tpu_torch.parallel import distribute as t_distr
 from parmmg_tpu_torch.parallel.distribute import stack_meshes
 from parmmg_tpu_torch.utils import conformity, gen as t_gen
 from test_torch_ops import (one_torch_thread, put_mesh,  # noqa: F401
@@ -459,9 +460,19 @@ UNPORTED_OPTIONS = [
 ]
 
 UNPORTED_FLAGS = [
-    ["-distributed-output"], ["-distributed-input"],
-    ["-ckpt", "ck"], ["-ckpt-every", "2"],
-    ["-ckpt-async"], ["-rn"], ["-pure-partitioning"],
+    ["-ckpt", "ck"], ["-ckpt-every", "2"], ["-ckpt-async"],
+]
+
+# flags ported since: each runs (on the cube n=2, one iteration) and
+# writes the files it names (in the test's directory, the -out name
+# given last)
+PORTED_FLAGS = [
+    (["-rn"], "o.mesh", ["o.mesh", "o.sol"]),
+    (["-pure-partitioning", "-nparts", "2"], "p.meshb",
+     ["p.0.meshb", "p.1.meshb"]),
+    (["-distributed-output"], "o.mesh", ["o.0.mesh", "o.0.sol"]),
+    (["-distributed-output", "-nparts", "2"], "d.pvtu",
+     ["d.pvtu", "d_0.vtu", "d_1.vtu"]),
 ]
 
 
@@ -487,6 +498,23 @@ def _assert_unported_refused(tmp_path):
     for extra in UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_cli.main([src, "-v", "0"] + extra, device="cpu")
+    base = ["-v", "0", "-niter", "1", "-hsiz", "0.5", "-mesh-size", "8"]
+    for extra, out, written in PORTED_FLAGS:
+        assert t_cli.main([src, "-out", str(tmp_path / out)] + base
+                          + extra, device="cpu") == 0, extra
+        for name in written:
+            assert (tmp_path / name).exists(), (extra, name)
+    # the per-rank files of -pure-partitioning as -distributed-input
+    assert t_cli.main([str(tmp_path / "p.meshb"), "-distributed-input",
+                       "-nparts", "2", "-out", str(tmp_path / "q.mesh")]
+                      + base, device="cpu") == 0
+    st, comm = t_medit.load_mesh_distributed(str(tmp_path / "q.mesh"), 2,
+                                             device="cpu")
+    assert int(st.tmask.sum()) > 48 and int(comm.counts.sum()) > 0
+    # reloaded conforming: interior vertices numbered, shards merged
+    st = t_distr.assign_global_ids(st)
+    merged = t_distr.merge_shards(st, t_distr.rebuild_comm(st))
+    assert conformity.check_mesh(merged).ok
 
 
 def _assert_validation_rolls_back(monkeypatch):
@@ -512,8 +540,8 @@ def _assert_validation_rolls_back(monkeypatch):
 
 def test_rules_of_the_port(monkeypatch, tmp_path):
     """No JAX in the port; no silent CPU fallback; every unported option
-    and flag refused naming its ROADMAP item; `basic` validation rolls a
-    failed iteration back."""
+    and flag refused naming its ROADMAP item, the ported distributed
+    flags run; `basic` validation rolls a failed iteration back."""
     _assert_no_jax_imports()
     _assert_no_device_and_no_cuda_raises(monkeypatch, tmp_path)
     _assert_unported_refused(tmp_path)

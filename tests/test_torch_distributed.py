@@ -37,9 +37,21 @@ numpy arrays.
   and op-by-op runs order them differently, see `_assert_leaves`);
   qmin/qavg within 5e-11 relative. Both graded cases carry a `(1, 3)`
   linear field, compared with JAX's (stacked and merged, within 5e-11).
+- The distributed workflow: `adapt_stacked_input` with the
+  communicator checks (balanced, frontier sweeps) on binary per-rank
+  files of the graded mesh's 4-shard split, carrying the same field
+  once loaded, against the live JAX run (the `input` case, compared as
+  above); on that split (the distribute part's) the Medit files
+  of both packages (centralized and per-rank, ASCII and binary, sols)
+  are equal byte for byte, the readers and `stack_loaded_shards` (by
+  stored global ids and by coordinate matching) give JAX's states and
+  node tables, `cross_shard_features` / `cross_shard_singul` JAX's
+  shards, the communicator checks JAX's reports, `renumber_sfc` JAX's
+  mesh, and the halo combines their definition.
 - The snapshot the interpolation reads is not touched by the remesh;
   `-nparts 4 -nobalance` and `-nparts 4 -balance 1.2 -nlayers 2` run
-  through the CLI and write the API's merged mesh.
+  through the CLI and write the API's merged mesh; `check_comm` runs
+  and raises on incoherent tables; what stays unported is refused.
 """
 
 import dataclasses
@@ -75,20 +87,24 @@ COMM = ("comm_idx", "counts", "l2g", "owner")
 CUMSUM_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4097, 70001)
 
 
-CASES = ("hsiz", "graded", "balanced")
+CASES = ("hsiz", "graded", "balanced", "input")
 
 
 def _case_options(case: str) -> dict:
     """DistOptions of a case: `hsiz` full-table, `graded` with frontier
     sweeps, `balanced` as `graded` with the balancing between
-    iterations."""
+    iterations, `input` as `balanced` with the communicator checks, on
+    the per-rank files of the graded mesh's split carrying the field
+    (`adapt_stacked_input`)."""
     kw = dict(CASE)
     if case == "hsiz":
         kw["hsiz"] = 0.18
     else:
         kw["frontier"] = True
-    if case == "balanced":
+    if case in ("balanced", "input"):
         kw["nobalancing"] = False
+    if case == "input":
+        kw["check_comm"] = True
     return kw
 
 
@@ -148,6 +164,7 @@ def _jax_distribute(out):
     st, comm = distribute.split_mesh(mesh, part, 4)
     _put(out, "split", st, LEAVES)
     _put(out, "comm", comm, COMM)
+    _jax_io(out, mesh, st, comm)
     # new vertices: drop the global ids of every second interior vertex
     vg = np.asarray(st.vglob).copy()
     inner = np.asarray(st.vmask) & ((np.asarray(st.vtag) & tags.PARBDY) == 0)
@@ -161,6 +178,133 @@ def _jax_distribute(out):
     _put(out, "merged", distribute.merge_shards(st, comm), LEAVES)
     _jax_balance(out, mesh, part)
     _jax_policy(out)
+
+
+# the Medit files of the I/O checks: (name, the mesh's distribution);
+# `w` holds face communicators only (vertex identity by coordinates)
+IO_SOL_TYPES = [1, 2]
+RAW_KEYS = ("verts", "vrefs", "tets", "trefs", "trias", "trrefs", "edges",
+            "edrefs", "corners", "req_verts", "req_trias", "req_edges",
+            "ridges")
+CHK_KEYS = ("max_coord_err", "gid_mismatch", "count_mismatch",
+            "valid_mismatch", "max_face_bc_err", "face_count_bad",
+            "max_edge_mid_err", "edge_tag_mismatch")
+
+
+def _io_sol(v):
+    """The values of the sol-file checks: a scalar and a vector."""
+    return np.concatenate([np.asarray(v)[:, :1] * 0.5 + 0.1,
+                           np.asarray(v)], axis=1)
+
+
+def _face_comm_only(trtag):
+    """The face communicators of the coordinate-matching files: the
+    shard's synthetic interface trias, one list, dummy global ids."""
+    from parmmg_tpu_torch.core import tags
+
+    ids = np.nonzero(tags.pure_interface_tria(np.asarray(trtag)))[0]
+    return [(0, ids, np.arange(len(ids)))]
+
+
+def _put_raw(out, key, raw):
+    for k in RAW_KEYS:
+        out[f"{key}/{k}"] = np.asarray(getattr(raw, k))
+    for kind in ("face_comms", "node_comms"):
+        for i, (c, loc, glob) in enumerate(getattr(raw, kind) or ()):
+            out[f"{key}/{kind}{i}"] = np.stack(
+                [np.full(len(loc), c), np.asarray(loc), np.asarray(glob)])
+
+
+def _perturbed(st_vert, st_vtag, tags):
+    """Coordinates with the first interface vertex of shard 1 moved by
+    1e-3 in x: the communicator checks then report errors."""
+    v = np.asarray(st_vert).copy()
+    k = int(np.nonzero(np.asarray(st_vtag)[1] & tags.PARBDY)[0][0])
+    v[1, k, 0] += 1e-3
+    return v
+
+
+def _diag_part(mesh):
+    """Four shards cut along x + y (tet barycenters), -1 on dead slots."""
+    v, t = np.asarray(mesh.vert), np.asarray(mesh.tet)
+    bc = v[t].mean(axis=1)
+    part = np.clip(np.floor((bc[:, 0] + bc[:, 1]) * 2), 0, 3).astype(np.int32)
+    return np.where(np.asarray(mesh.tmask), part, -1)
+
+
+def _bare(m):
+    """A shard without its feature edges: the cube's ridges then cross
+    the interfaces unseen by the per-shard detection."""
+    return m.replace(edmask=m.edmask & False)
+
+
+def _jax_io(out, mesh, st, comm):
+    """Binary and distributed Medit I/O, the loaders, the cross-shard
+    analysis, the communicator checks and renumber_sfc on the split of
+    the distribute part's mesh. The files' bytes go back to the parent."""
+    import os
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from parmmg_tpu.core import tags
+    from parmmg_tpu.io import medit
+    from parmmg_tpu.ops import analysis
+    from parmmg_tpu.parallel import chkcomm, distribute, partition
+    from parmmg_tpu.parallel.shard import device_mesh
+
+    d = tempfile.mkdtemp(prefix="jio")
+    vals = _io_sol(np.asarray(mesh.vert)[np.asarray(mesh.vmask)])
+    medit.save_mesh(mesh, os.path.join(d, "c.mesh"))
+    medit.save_mesh(mesh, os.path.join(d, "c.meshb"))
+    medit.save_sol(os.path.join(d, "s.sol"), vals, IO_SOL_TYPES)
+    medit.save_sol(os.path.join(d, "s.solb"), vals, IO_SOL_TYPES)
+    medit.save_mesh_distributed(st, comm, os.path.join(d, "a.mesh"),
+                                with_met=True)
+    medit.save_mesh_distributed(st, comm, os.path.join(d, "b.meshb"),
+                                with_met=True)
+    for s, m in enumerate(distribute.unstack_mesh(st)):
+        medit.save_mesh(m, os.path.join(d, f"w.{s}.mesh"),
+                        face_comms=_face_comm_only(m.trtag))
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[f"io/file/{name}"] = np.frombuffer(f.read(), np.uint8)
+    _put_raw(out, "io/raw", medit.read_mesh(os.path.join(d, "b.1.meshb")))
+    for key, name, sol in (("la", "a.mesh", "a.sol"),
+                           ("lb", "b.meshb", "b.solb")):
+        lst, lcomm = medit.load_mesh_distributed(
+            os.path.join(d, name), 4, metpath=os.path.join(d, sol),
+            dtype=jnp.float64)
+        _put(out, f"io/{key}", lst, LEAVES)
+        _put(out, f"io/{key}c", lcomm, COMM)
+    lw, lwc = distribute.stack_loaded_shards(
+        [medit.read_mesh(os.path.join(d, f"w.{s}.mesh")) for s in range(4)],
+        dtype=jnp.float64)
+    _put(out, "io/lw", lw, LEAVES)
+    _put(out, "io/lwc", lwc, COMM)
+    # the cross-shard analysis on the loaded shards analysed without
+    # their stored feature edges (`_bare`)
+    shards = [analysis.analyze(_bare(m), ang=45.0)
+              for m in distribute.unstack_mesh(lst)]
+    for s, m in enumerate(analysis.cross_shard_features(shards, ang=45.0)):
+        _put(out, f"io/xf{s}", m, LEAVES)
+    for s, m in enumerate(analysis.cross_shard_singul(
+            shards, float(np.cos(np.radians(45.0))))):
+        _put(out, f"io/xs{s}", m, LEAVES)
+    # a diagonal cut, which splits ridge edges between shards
+    dst, _ = distribute.split_mesh(mesh, _diag_part(mesh), 4)
+    shards = [analysis.analyze(_bare(m), ang=45.0)
+              for m in distribute.unstack_mesh(dst)]
+    for s, m in enumerate(analysis.cross_shard_features(shards, ang=45.0)):
+        _put(out, f"io/xd{s}", m, LEAVES)
+    dm = device_mesh(4)
+    bad = lst.replace(vert=jnp.asarray(_perturbed(lst.vert, lst.vtag, tags)))
+    for key, m in (("ok", lst), ("bad", bad)):
+        rep = chkcomm.check_node_comm(m, lcomm, dm)
+        rep.update(chkcomm.check_face_edge_comm(m, lcomm, dm))
+        out[f"io/chk_{key}"] = np.asarray([rep[k] for k in CHK_KEYS],
+                                          np.float64)
+    _put(out, "io/rn", partition.renumber_sfc(mesh), LEAVES)
 
 
 def _islands(color, tmask):
@@ -277,22 +421,67 @@ def _jax_policy(out):
                                    migrate.measured_shard_work)
 
 
+def _shard_fields(vert, vmask):
+    """The linear `(1, 3)` field at every live slot of stacked shards
+    (0 on dead slots)."""
+    v = np.asarray(vert)
+    return np.where(np.asarray(vmask)[..., None],
+                    _linear_fields(v.reshape(-1, 3)).reshape(
+                        v.shape[:-1] + (4,)), 0.0)
+
+
+def _jax_loaded_input(out):
+    """The distribute part's split written as binary per-rank files with
+    their metrics and loaded back, carrying the linear field as the
+    other graded cases do (so the balanced run's compiled programs
+    serve it): the input of the `input` case."""
+    import os
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from parmmg_tpu.io import medit
+    from parmmg_tpu.ops import analysis
+    from parmmg_tpu.parallel import distribute, partition
+    from parmmg_tpu.utils import gen
+
+    mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
+    mesh = analysis.analyze(mesh.replace(
+        met=jnp.asarray(_graded(np.asarray(mesh.vert))), met_set=True))
+    part = np.asarray(partition.sfc_partition(
+        mesh, 4, partition.metric_weights(mesh)))
+    st, comm = distribute.split_mesh(mesh, part, 4)
+    path = os.path.join(tempfile.mkdtemp(prefix="jin"), "in.meshb")
+    medit.save_mesh_distributed(st, comm, path, with_met=True)
+    st, comm = medit.load_mesh_distributed(
+        path, 4, metpath=medit.met_filename(path), dtype=jnp.float64)
+    st = st.replace(fields=jnp.asarray(_shard_fields(st.vert, st.vmask)),
+                    field_ncomp=(1, 3))
+    _put(out, "loaded", st, LEAVES)
+    return st, comm
+
+
 def _jax_adapt(out, case):
     import jax.numpy as jnp
 
     from parmmg_tpu.models.distributed import (DistOptions,
                                                adapt_distributed,
+                                               adapt_stacked_input,
                                                merge_adapted)
     from parmmg_tpu.utils import gen
 
-    mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
     kw = _case_options(case)
-    if case != "hsiz":
-        v = np.asarray(mesh.vert)
-        mesh = mesh.replace(met=jnp.asarray(_graded(v)), met_set=True,
-                            fields=jnp.asarray(_linear_fields(v)),
-                            field_ncomp=(1, 3))
-    st, comm, info = adapt_distributed(mesh, DistOptions(**kw))
+    if case == "input":
+        st, comm, info = adapt_stacked_input(*_jax_loaded_input(out),
+                                             DistOptions(**kw))
+    else:
+        mesh = gen.unit_cube_mesh(5, dtype=jnp.float64)
+        if case != "hsiz":
+            v = np.asarray(mesh.vert)
+            mesh = mesh.replace(met=jnp.asarray(_graded(v)), met_set=True,
+                                fields=jnp.asarray(_linear_fields(v)),
+                                field_ncomp=(1, 3))
+        st, comm, info = adapt_distributed(mesh, DistOptions(**kw))
     for k in HIST_KEYS:
         out[f"hist/{k}"] = np.asarray([r[k] for r in info["history"]])
     out["status"] = np.asarray(int(info["status"]))
@@ -315,10 +504,11 @@ def jax_dist(*parts) -> dict:
     return out
 
 
-# the JAX side's child processes: the balanced run follows the graded
-# one in its process, whose first iteration has the same shapes (the
-# compiled programs are reused)
-GROUPS = (("hsiz",), ("graded", "balanced"), ("distribute",))
+# the JAX side's child processes, one a group, run side by side: the
+# input run, whose shards have the balanced run's shapes, follows the
+# balanced one in its process (the compiled programs are reused); the
+# I/O checks run with the distribute part
+GROUPS = (("hsiz",), ("graded",), ("balanced", "input"), ("distribute",))
 
 
 @pytest.fixture(scope="module")
@@ -404,15 +594,20 @@ def _assert_comm(comm, ref: dict, key: str):
 
 
 @pytest.fixture(scope="module")
-def torch_runs(ref):
+def torch_runs(ref, tmp_path_factory):
     """The port's runs of every case (CPU, f64), while the JAX side's
-    runs of the same cases go on in their child processes."""
-    ref.start(*CASES)
+    runs of the same cases go on in their child processes, with the
+    distribute part's: the scheduler tends to hand the module's next
+    test to the same worker, which then finds it done."""
+    ref.start(*CASES, "distribute")
     runs = {}
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
         for case in CASES:
+            if case == "input":
+                runs[case] = _input_run(tmp_path_factory.mktemp("tin"))
+                continue
             mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64,
                                         device="cpu")
             kw = _case_options(case)
@@ -430,9 +625,55 @@ def torch_runs(ref):
 
 def test_adapt_distributed_equals_live_jax(ref, torch_runs):
     """Every case (hsiz 0.18 and graded size with -nobalance, graded size
-    balanced) against the live JAX runs."""
-    for case in CASES:
+    balanced) against the live JAX runs; and the distributed workflow on
+    the graded mesh's split (`_check_input`): the `input` case, balanced
+    from per-rank binary files with the communicator checks, against the
+    live JAX run."""
+    for case in CASES[:-1]:
         _check_case(ref(case), torch_runs[case], case)
+    _check_input(ref("input"), *torch_runs["input"])
+
+
+def _loaded_input(tmp):
+    """The port's side of `_jax_loaded_input`: the graded mesh's split
+    written as binary per-rank files by the port and loaded back
+    (stacked, comm), carrying the linear field."""
+    from parmmg_tpu_torch.ops import analysis as t_an
+
+    mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64, device="cpu")
+    mesh = t_an.analyze(mesh.replace(met=_graded(mesh.vert), met_set=True))
+    part = t_part.sfc_partition(mesh, 4, t_part.metric_weights(mesh))
+    st, comm = t_distr.split_mesh(mesh, part.numpy(), 4)
+    path = str(tmp / "in.meshb")
+    t_medit.save_mesh_distributed(st, comm, path, with_met=True)
+    lst, lcomm = t_medit.load_mesh_distributed(
+        path, 4, metpath=t_medit.met_filename(path), dtype=torch.float64,
+        device="cpu")
+    return lst.replace(fields=torch.as_tensor(_shard_fields(lst.vert,
+                                                            lst.vmask)),
+                       field_ncomp=(1, 3)), lcomm
+
+
+def _input_run(tmp):
+    """The port's `input` case: `adapt_stacked_input` on the loaded
+    per-rank files, with every `assert_comm_ok` report it makes.
+    Returns (loaded stacked, (stacked, comm, info), reports)."""
+    st, comm = _loaded_input(tmp)
+    real_check = t_dist.chkcomm.assert_comm_ok
+    checks = []
+
+    def counted(*a, **k):
+        checks.append(real_check(*a, **k))
+        return checks[-1]
+
+    t_dist.chkcomm.assert_comm_ok = counted
+    try:
+        run = t_dist.adapt_stacked_input(
+            st, comm, t_dist.DistOptions(**_case_options("input")),
+            device="cpu")
+    finally:
+        t_dist.chkcomm.assert_comm_ok = real_check
+    return st, run, checks
 
 
 def _check_case(r, run, case):
@@ -468,6 +709,7 @@ def _check_case(r, run, case):
         # interpolation moved values: the graded sizes are not constant
         met = merged.met[merged.vmask, 0]
         assert float(met.max() - met.min()) > 0.1
+    if case != "hsiz":
         # the field (compared with JAX's above, stacked and merged, with
         # the leaves) follows the vertices: the P1 pulls and the split
         # midpoints are exact for a linear field, so most vertices carry
@@ -479,7 +721,7 @@ def _check_case(r, run, case):
             merged.vert.numpy()[live])).max(axis=1)
         assert (err < 1e-12).mean() > 0.8, (err < 1e-12).mean()
     bal = info["balance"]
-    if case != "balanced":
+    if case not in ("balanced", "input"):
         assert bal == []
         return
     # iteration 0 displaced the interfaces and moved cells, the last
@@ -489,10 +731,12 @@ def _check_case(r, run, case):
     assert all(b["cells"] > 0 for b in bal)
 
 
-def test_partition_split_and_merge_match_jax(ref):
+def test_partition_split_and_merge_match_jax(ref, tmp_path):
     """sfc_partition with unit and metric weights, split_mesh (every
     leaf, the comm tables), assign_global_ids, rebuild_comm and
-    merge_shards: exact; and the partition's prefix sum against XLA's."""
+    merge_shards: exact; on that split the Medit I/O, the loaders, the
+    cross-shard analysis, the communicator checks and renumber_sfc
+    (`_check_io`); and the partition's prefix sum against XLA's."""
     r = ref("distribute")
     mesh = _mesh(r, "mesh")
     w = t_part.metric_weights(mesh)
@@ -506,6 +750,7 @@ def test_partition_split_and_merge_match_jax(ref):
     _assert_leaves(st, r, "split")
     _assert_comm(comm, r, "comm")
     assert int(comm.counts.sum()) > 0
+    _check_io(r, mesh, st, comm, tmp_path)
     st = t_distr.assign_global_ids(st.replace(
         vglob=torch.as_tensor(r["vglob_in"])))
     np.testing.assert_array_equal(st.vglob.numpy(), r["vglob_out"])
@@ -519,6 +764,161 @@ def test_partition_split_and_merge_match_jax(ref):
     np.testing.assert_array_equal(
         _policy_matrix(t_mig.BalancePolicy, t_mig.measured_shard_work),
         r["policy"])
+
+
+def _check_io(r, mesh, st, comm, tmp):
+    """The port's Medit files of the split (centralized and per-rank,
+    ASCII and binary, sols) equal JAX's byte for byte; the port's
+    readers on JAX's files give JAX's RawMesh, stacked state and node
+    tables (by stored global ids and by coordinate matching); on the
+    analysed loaded shards `cross_shard_features` and
+    `cross_shard_singul` give JAX's shards, the communicator checks
+    JAX's reports (coherent tables, and perturbed coordinates); and
+    `renumber_sfc` JAX's mesh."""
+    from parmmg_tpu_torch.core import tags
+    from parmmg_tpu_torch.ops import analysis as t_an
+    from parmmg_tpu_torch.parallel import chkcomm
+
+    jdir, pdir = tmp / "jax", tmp / "port"
+    jdir.mkdir()
+    pdir.mkdir()
+    files = {k[len("io/file/"):]: v.tobytes() for k, v in r.items()
+             if k.startswith("io/file/")}
+    for name, data in files.items():
+        (jdir / name).write_bytes(data)
+    vals = _io_sol(mesh.vert.numpy()[mesh.vmask.numpy()])
+    t_medit.save_mesh(mesh, str(pdir / "c.mesh"))
+    t_medit.save_mesh(mesh, str(pdir / "c.meshb"))
+    t_medit.save_sol(str(pdir / "s.sol"), vals, IO_SOL_TYPES)
+    t_medit.save_sol(str(pdir / "s.solb"), vals, IO_SOL_TYPES)
+    t_medit.save_mesh_distributed(st, comm, str(pdir / "a.mesh"),
+                                  with_met=True)
+    t_medit.save_mesh_distributed(st, comm, str(pdir / "b.meshb"),
+                                  with_met=True)
+    for s, m in enumerate(t_distr.unstack_mesh(st)):
+        t_medit.save_mesh(m, str(pdir / f"w.{s}.mesh"),
+                          face_comms=_face_comm_only(m.trtag.numpy()))
+    assert sorted(p.name for p in pdir.iterdir()) == sorted(files)
+    assert len(files) == 4 + 4 * 4 + 4
+    for name, data in files.items():
+        assert (pdir / name).read_bytes() == data, name
+    assert t_medit.is_binary_file(str(jdir / "b.0.meshb"))
+    assert not t_medit.is_binary_file(str(jdir / "a.0.mesh"))
+    # the sol readers, both encodings
+    for name, rtol in (("s.sol", 1e-14), ("s.solb", 0.0)):
+        # ASCII keeps 15 significant digits, binary every bit
+        got, types = t_medit.read_sol(str(jdir / name))
+        assert types == IO_SOL_TYPES
+        np.testing.assert_allclose(got, vals, rtol=rtol, atol=0)
+
+    raw = t_medit.read_mesh(str(jdir / "b.1.meshb"))
+    for k in RAW_KEYS:
+        np.testing.assert_array_equal(getattr(raw, k), r[f"io/raw/{k}"],
+                                      err_msg=k)
+    for kind in ("face_comms", "node_comms"):
+        comms = getattr(raw, kind)
+        assert comms and len(comms) == sum(
+            k.startswith(f"io/raw/{kind}") for k in r)
+        for i, (c, loc, glob) in enumerate(comms):
+            np.testing.assert_array_equal(
+                np.stack([np.full(len(loc), c), loc, glob]),
+                r[f"io/raw/{kind}{i}"], err_msg=(kind, i))
+    loaded = {}
+    for key, name, sol in (("la", "a.mesh", "a.sol"),
+                           ("lb", "b.meshb", "b.solb")):
+        loaded[key] = t_medit.load_mesh_distributed(
+            str(jdir / name), 4, metpath=str(jdir / sol),
+            dtype=torch.float64, device="cpu")
+        _assert_leaves(loaded[key][0], r, f"io/{key}")
+        _assert_comm(loaded[key][1], r, f"io/{key}c")
+    lw, lwc = t_distr.stack_loaded_shards(
+        [t_medit.read_mesh(str(jdir / f"w.{s}.mesh")) for s in range(4)],
+        dtype=torch.float64, device="cpu")
+    _assert_leaves(lw, r, "io/lw")
+    _assert_comm(lwc, r, "io/lwc")
+    assert int(lwc.counts.sum()) > 0
+
+    lst, lcomm = loaded["lb"]
+    shards = [t_an.analyze(_bare(m), ang=45.0)
+              for m in t_distr.unstack_mesh(lst)]
+    feats = t_an.cross_shard_features(shards, ang=45.0)
+    singul = t_an.cross_shard_singul(shards, float(np.cos(np.radians(45.0))))
+    for s in range(4):
+        _assert_leaves(feats[s], r, f"io/xf{s}", rtol=RTOL)
+        _assert_leaves(singul[s], r, f"io/xs{s}", rtol=RTOL)
+    # the cube's ridges cross the interfaces: the agreement clears the
+    # corners each side guessed where a ridge leaves its shard
+    assert any(bool((a.vtag != b.vtag).any())
+               for a, b in zip(singul, shards))
+    # a diagonal cut splits ridge edges between shards: the pass adds them
+    dst, _ = t_distr.split_mesh(mesh, _diag_part(mesh), 4)
+    shards = [t_an.analyze(_bare(m), ang=45.0)
+              for m in t_distr.unstack_mesh(dst)]
+    feats = t_an.cross_shard_features(shards, ang=45.0)
+    for s in range(4):
+        _assert_leaves(feats[s], r, f"io/xd{s}", rtol=RTOL)
+    assert sum(int(f.nedge) - int(m.nedge) for f, m in zip(feats, shards)) \
+        > 0
+    bad = lst.replace(vert=torch.as_tensor(_perturbed(lst.vert, lst.vtag,
+                                                      tags)))
+    for key, m in (("ok", lst), ("bad", bad)):
+        rep = chkcomm.check_node_comm(m, lcomm)
+        rep.update(chkcomm.check_face_edge_comm(m, lcomm))
+        got = np.asarray([rep[k] for k in CHK_KEYS], np.float64)
+        np.testing.assert_allclose(got, r[f"io/chk_{key}"], rtol=RTOL,
+                                   atol=0, err_msg=key)
+    assert chkcomm.assert_comm_ok(lst, lcomm)["count_mismatch"] == 0
+    with pytest.raises(AssertionError, match="communicator check"):
+        chkcomm.assert_comm_ok(bad, lcomm)
+    _check_halo(lst, lcomm)
+    _assert_leaves(t_part.renumber_sfc(mesh), r, "io/rn")
+
+
+def _check_halo(st, comm):
+    """The stacked halo combines against their definition: every copy of
+    an interface vertex ends with the sum / min / max / OR over the
+    copies on all shards (grouped by global id); other slots keep their
+    values."""
+    from parmmg_tpu_torch.parallel import comm as t_comm
+
+    rng = np.random.default_rng(7)
+    vals = torch.as_tensor(rng.integers(0, 64, st.vmask.shape),
+                           dtype=torch.int32)
+    g = comm.l2g.numpy()
+    ci = comm.comm_idx.numpy()
+    shared = np.zeros(g.shape, bool)
+    for s in range(ci.shape[0]):
+        for r_ in range(ci.shape[1]):
+            sl = ci[s, r_][ci[s, r_] >= 0]
+            shared[s, sl] = True
+    v = vals.numpy()
+    for fn, red in ((t_comm.halo_sum, np.add), (t_comm.halo_min, np.minimum),
+                    (t_comm.halo_max, np.maximum),
+                    (t_comm.halo_or, np.bitwise_or)):
+        want = v.copy()
+        for gid in np.unique(g[shared]):
+            sel = shared & (g == gid)
+            want[sel] = red.reduce(v[sel])
+        np.testing.assert_array_equal(fn(vals, comm.comm_idx).numpy(), want,
+                                      err_msg=fn.__name__)
+    b = torch.as_tensor(v % 5 == 0)
+    got = t_comm.halo_or(b, comm.comm_idx).numpy()
+    want = b.numpy().copy()
+    for gid in np.unique(g[shared]):
+        sel = shared & (g == gid)
+        want[sel] = want[sel].any()
+    np.testing.assert_array_equal(got, want)
+
+
+def _check_input(r, loaded, run, checks):
+    """The `input` case against the live JAX run (as `_check_case`), its
+    loaded shards equal JAX's, the communicator checks run once an
+    iteration on coherent tables."""
+    _check_case(r, run, "input")
+    _assert_leaves(loaded, r, "loaded")
+    assert len(checks) == CASE["niter"]
+    assert all(c["face_count_bad"] == c["gid_mismatch"] == 0
+               and c["max_coord_err"] == 0.0 for c in checks), checks
 
 
 def _check_prefix_sum(r):
@@ -707,13 +1107,37 @@ def _check_rollback_classes(monkeypatch):
 
 
 def _check_refusals(tmp_path, monkeypatch):
-    """What the balancing slice leaves out stays refused, naming its
-    ROADMAP item: the communicator checks, and a balance band derived
-    from a PERF_DB; a band given or in the environment is taken."""
+    """What the port still leaves out stays refused, naming its ROADMAP
+    item: a balance band derived from a PERF_DB, and resume (a
+    checkpoint directory); a band given or in the environment is taken.
+    The communicator checks (`check_comm`), refused before item 12, run
+    once an iteration and raise on incoherent tables."""
     mesh = t_gen.unit_cube_mesh(3, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_dist.adapt_distributed(mesh, t_dist.DistOptions(
-            nparts=2, check_comm=True), device="cpu")
+    opts = t_dist.DistOptions(nparts=2, niter=2, max_sweeps=2, hsiz=0.3,
+                              min_shard_elts=16, check_comm=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        t_dist.adapt_distributed(mesh, dataclasses.replace(
+            opts, checkpoint_dir=str(tmp_path / "ck")), device="cpu")
+    reps = []
+    real = t_dist.chkcomm.assert_comm_ok
+    with monkeypatch.context() as mp:
+        mp.setattr(t_dist.chkcomm, "assert_comm_ok",
+                   lambda *a, **k: reps.append(real(*a, **k)))
+        _, _, info = t_dist.adapt_distributed(mesh, opts, device="cpu")
+    assert int(info["status"]) == 0 and len(reps) == 2
+    with monkeypatch.context() as mp:
+        # coordinates that disagree across shards fail the check, which
+        # no rollback absorbs
+        real_interp = t_dist.interp_phase
+
+        def shifted(*a, **k):
+            out = real_interp(*a, **k)
+            return [m.replace(vert=m.vert + 1e-3 * s)
+                    for s, m in enumerate(out)]
+
+        mp.setattr(t_dist, "interp_phase", shifted)
+        with pytest.raises(AssertionError, match="communicator check"):
+            t_dist.adapt_distributed(mesh, opts, device="cpu")
     db = tmp_path / "perf_db.jsonl"
     db.write_text("")
     opts = t_dist.DistOptions(nparts=2)
