@@ -64,6 +64,16 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    merged, must be conforming with qmin > 0 and an element count in the
    window of 2c; every kernel launched, interp_bary at least niter
    times; the check_comm block timed on the output;
+2f. two ranks on the one card: 2c's balanced command, then 2e's
+   -distributed-input step from the same per-rank files, each as two
+   `python -m parmmg_tpu_torch` processes under the env contract (gloo
+   on 127.0.0.1, a wall limit each), each rank with its own -out; both
+   ranks' files must be equal byte for byte and give the one-process
+   mesh of 2c or 2e bit for bit, and every rank must launch quality_vol,
+   collapse_cavity and split_midpoint, and interp_bary at least niter
+   times; each rank's remeshing wall time, gathers (calls, bytes,
+   seconds) and launches are printed with the card's name and power
+   limit;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of its own last launch on each path it runs on (tables of P
    rows, a stream of N rows; the three sweep kernels at the centralized
@@ -215,16 +225,21 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3):
+def time_ms(fn, reps: int = 25, warm: int = 3, symbol: str | None = None):
     """(device ms, call ms) of one call of `fn` over `reps` calls.
 
     Device ms: the GPU time of the kernels the calls launched, read from
     `torch.profiler` (CUPTI) records, over `reps` (a mean) — the per-call
     CUDA-event time is dominated by the host's launch overhead at these
-    sizes. Call ms: the median CUDA-event time around each call. A
-    capture can come back without device records after many in one
-    process (phase 3 makes about 60), so a capture that has none is
-    made again, up to 3 in all; where none has any, device ms is None."""
+    sizes. With `symbol`, only the records of kernels whose name holds
+    it count, and a capture counts only where it holds a whole multiple
+    of `reps` of them: late in a process that made many captures, a
+    capture can come back with none or some of its kernel's records,
+    and with a few records that are not its calls' (chip runs, PR 10).
+    Such a capture is made again, up to 4 in all; where none is whole,
+    device ms is None. Without `symbol` (the plain versions, tens of
+    kernels a call) every record counts. Call ms: the median CUDA-event
+    time around each call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -241,16 +256,26 @@ def time_ms(fn, reps: int = 25, warm: int = 3):
         b.record()
         b.synchronize()
         calls.append(a.elapsed_time(b))
-    for _ in range(3):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
-        if dev_us > 0:
-            return dev_us / reps / 1e3, statistics.median(calls)
+        recs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and (symbol is None or symbol in e.name)]
+        if recs and (symbol is None or len(recs) % reps == 0):
+            return sum(recs) / reps / 1e3, statistics.median(calls)
+        print(f"## note: a profiler capture held {len(recs)} records of "
+              f"{symbol or 'any kernel'} for {reps} calls; made again",
+              flush=True)
     return None, statistics.median(calls)
+
+
+# the name of each kernel's device function, as the profiler reports it
+SYMBOLS = {"quality_vol": "tile_kernel", "collapse_cavity": "tile_kernel",
+           "split_midpoint": "split_midpoint_kernel",
+           "interp_bary": "interp_bary_kernel"}
 
 
 def row_scales(vert, met, tet):
@@ -356,10 +381,11 @@ def bound(name: str, C: int, P: int, N: int, itemsize: int, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timed(fn, fn0, err, bound_ms, bound_by) -> dict:
-    """Times of a kernel `fn` and its plain version `fn0`: device time
-    (CUPTI) where the profiler saw the kernels, else CUDA-event time."""
-    dev, call = time_ms(fn)
+def timed(name, fn, fn0, err, bound_ms, bound_by) -> dict:
+    """Times of kernel `name`'s wrapper `fn` and its plain version
+    `fn0`: device time (CUPTI) where the profiler saw the kernels, else
+    CUDA-event time."""
+    dev, call = time_ms(fn, symbol=SYMBOLS[name])
     dev0, call0 = time_ms(fn0)
     if dev is None or dev0 is None:
         print("## note: the profiler recorded no device activity; kernel "
@@ -381,7 +407,8 @@ def launch_floor(rows: int, shards: int):
     fn = build.function("launch_floor")
     stream = torch.cuda.current_stream().cuda_stream
     return time_ms(lambda: build.check(fn(rows, shards, stream),
-                                       "launch_floor"))[0]
+                                       "launch_floor"),
+                   symbol="launch_floor_kernel")[0]
 
 
 def floors(name: str, dtn: str, C: int, N: int, r: dict) -> str:
@@ -1031,6 +1058,148 @@ def distributed_input_path(n: int, ne_range):
     return m, launches, shapes, q_in
 
 
+# phase 2f: the ranks of a two-process world on the one card, and the wall
+# limit past which a rank process is killed
+RANKS = 2
+RANK_WALL_S = 600
+_RANK_LINE = re.compile(r"^## rank (\d+) of (\d+): (\{.*\})$", re.M)
+
+
+def run_ranks(argv_of, label: str, card: str) -> list:
+    """`python -m parmmg_tpu_torch` as RANKS processes under the env
+    contract (gloo on 127.0.0.1, a free port), rank r on `argv_of(r)`,
+    each killed past RANK_WALL_S. Every rank must exit 0, roll back only
+    on the phase-boundary validation, and launch quality_vol,
+    collapse_cavity and split_midpoint, and interp_bary at least niter
+    times (its own `## rank r of N` line: gathers and launches). Prints
+    each rank's remeshing wall time, gathers (calls, bytes, seconds) and
+    launches. Returns the ranks' reports."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for r in range(RANKS):
+        env = dict(os.environ, PMMGTPU_COORDINATOR=f"127.0.0.1:{port}",
+                   PMMGTPU_NUM_PROCS=str(RANKS), PMMGTPU_PROC_ID=str(r))
+        argv = [sys.executable, "-m", "parmmg_tpu_torch", *argv_of(r)]
+        print(f"## {label}, rank {r}: {' '.join(argv[1:])}", flush=True)
+        procs.append(subprocess.Popen(argv, cwd=root, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    texts = []
+    try:
+        for p in procs:
+            left = max(1.0, t0 + RANK_WALL_S - time.perf_counter())
+            try:
+                texts.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                texts.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reps = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        require(p.returncode == 0, f"{label}: rank {r} exited "
+                f"{p.returncode}:\n{text[-6000:]}")
+        m = _RANK_LINE.search(text)
+        require(m is not None and int(m[1]) == r and int(m[2]) == RANKS,
+                f"{label}: rank {r} printed no rank line:\n{text[-3000:]}")
+        rep = json.loads(m[3])
+        rep["remeshing_s"] = phase_times(text).get("remeshing")
+        check_rollbacks([ln for ln in text.splitlines()
+                         if "rolled back" in ln], f"{label}, rank {r}")
+        launches = rep["launches"]
+        require(launches["interp_bary"] >= NITER,
+                f"{label}: rank {r} launched interp_bary "
+                f"{launches['interp_bary']} times, fewer than niter={NITER}")
+        for name in CENTRAL:
+            require(launches[name] > 0, f"{label}: rank {r} never "
+                    f"launched {name}")
+        print(f"## {label}, rank {r} [{card}]: remeshing "
+              f"{rep['remeshing_s']} s, {rep['gathers']} gathers, "
+              f"{rep['gather_bytes']} bytes, {rep['gather_s']} s in them; "
+              f"launches {launches}", flush=True)
+        reps.append(rep)
+    require(len({r["gathers"] for r in reps}) == 1,
+            f"{label}: the ranks made different numbers of gathers")
+    print(f"## {label}: {RANKS} ranks, {wall:.1f} s wall", flush=True)
+    return reps
+
+
+def same_files(names, what: str) -> None:
+    """The files `names` (one a rank) are equal byte for byte."""
+    blobs = []
+    for name in names:
+        with open(name, "rb") as f:
+            blobs.append(f.read())
+    require(all(b == blobs[0] for b in blobs), f"{what}: the ranks' files "
+            f"{names} differ")
+
+
+def two_rank_path(n: int, m_d, m_in, card: str) -> dict:
+    """Phase 2f: the balanced distributed command of 2c, then 2e's
+    -distributed-input step, each as RANKS `python -m parmmg_tpu_torch`
+    processes on the one card (`run_ranks`), each rank with its own
+    -out. Both ranks' outputs must be equal byte for byte, and equal the
+    one-process mesh of 2c (`m_d`) or 2e (`m_in`, merged as there) bit
+    for bit. Returns {step: the ranks' reports}."""
+    from parmmg_tpu_torch import __main__ as cli
+    from parmmg_tpu_torch.io import medit
+    from parmmg_tpu_torch.parallel.distribute import (
+        assign_global_ids, merge_shards, rebuild_comm)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
+        cube, sol = write_graded_cube(work, n)
+        label = "two ranks, distributed path"
+        dist = [os.path.join(work, f"dist{r}.mesh") for r in range(RANKS)]
+        out["distributed"] = run_ranks(
+            lambda r: [cube, "-sol", sol, "-nparts", str(NPARTS), "-niter",
+                       str(NITER), "-out", dist[r]], label, card)
+        same_files(dist, label)
+        same_files([medit.met_filename(d) for d in dist], label)
+        m = medit.load_mesh(dist[0], medit.met_filename(dist[0]),
+                            device="cuda")
+        require_same_mesh(m, m_d, f"{label}: the mesh differs from the "
+                          "one-process run's")
+        print(f"## {label}: both ranks wrote the one-process mesh "
+              f"({int(m.ntet)} tets) bit for bit", flush=True)
+
+        label = "two ranks, distributed input"
+        parts = os.path.join(work, "parts.meshb")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([cube, "-sol", sol, "-nparts", str(NPARTS),
+                           "-pure-partitioning", "-out", parts])
+        require(rc == 0, f"{label} -pure-partitioning: CLI exited {rc}")
+        dins = [os.path.join(work, f"din{r}.meshb") for r in range(RANKS)]
+        out["distributed input"] = run_ranks(
+            lambda r: [parts, "-sol", medit.met_filename(parts), "-nparts",
+                       str(NPARTS), "-distributed-input", "-niter",
+                       str(NITER), "-out", dins[r]], label, card)
+        for s in range(NPARTS):
+            shard = [medit.shard_filename(d, s) for d in dins]
+            same_files(shard, label)
+            same_files([medit.met_filename(x) for x in shard], label)
+        st, _ = medit.load_mesh_distributed(
+            dins[0], NPARTS, metpath=medit.met_filename(dins[0]),
+            device="cuda")
+        st = assign_global_ids(st)
+        m = merge_shards(st, rebuild_comm(st))
+        require_same_mesh(m, m_in, f"{label}: the mesh differs from the "
+                          "one-process run's")
+        print(f"## {label}: both ranks wrote the one-process per-rank "
+              f"files ({int(m.ntet)} tets merged) bit for bit", flush=True)
+    return out
+
+
 def profile_distributed_path(n: int, cli_out) -> None:
     """Phase 2c, repeated: `adapt_distributed()` with the balanced CLI's
     options on the same input under torch.profiler, which must give the
@@ -1268,6 +1437,7 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str,
                     check_close(vol, vol0, s_vol, dtn,
                                 f"quality_vol vol {dtn} C={C}"))
                 results[("quality_vol", dtn, C)] = timed(
+                    "quality_vol",
                     lambda: kernels.quality_vol(vert, met, tet),
                     lambda: kernels.quality_vol_plain(vert, met, tet),
                     err, *bound("quality_vol", C, P, N, isz, dtn))
@@ -1291,6 +1461,7 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str,
                                   row_scales(vert, met, new_tet)[1][fin],
                                   dtn, f"collapse_cavity {dtn} C={C}")
                 results[("collapse_cavity", dtn, C)] = timed(
+                    "collapse_cavity",
                     lambda: kernels.collapse_cavity(vert, met, new_tet,
                                                     floor),
                     lambda: kernels.collapse_cavity_plain(vert, met,
@@ -1308,6 +1479,7 @@ def check_kernels(m, shapes: dict, hsiz: float, path: str,
             require(0 < int(ok0.sum()) < N,
                     "split_midpoint fixture has no mix of verdicts")
             results[("split_midpoint", dtn, 0)] = timed(
+                "split_midpoint",
                 lambda: kernels.split_midpoint(vert, tet, newp, li, lj),
                 lambda: kernels.split_midpoint_plain(vert, tet, newp, li,
                                                      lj),
@@ -1390,6 +1562,7 @@ def check_interp(m, shapes) -> dict:
             check_close(mq, mq0, torch.zeros_like(mq0), dtn,
                         f"interp_bary met_q {dtn}"))
         results[("interp_bary", dtn, 1)] = timed(
+            "interp_bary",
             lambda: kernels.interp_bary(vert, met, vids, pts),
             lambda: kernels.interp_bary_plain(vert, met, vids, pts),
             err, *bound("interp_bary", 1, D * P, D * Q, isz, dtn))
@@ -1622,6 +1795,8 @@ def main() -> int:
     print(f"## phase 2c done at {time.perf_counter() - t0:.1f} s", flush=True)
     m_in, _, shapes_in, q_in = distributed_input_path(CUBE_N, DIST_NE_RANGE)
     print(f"## phase 2e done at {time.perf_counter() - t0:.1f} s", flush=True)
+    two_rank_path(CUBE_N, m_d, m_in, card)
+    print(f"## phase 2f done at {time.perf_counter() - t0:.1f} s", flush=True)
     results = check_kernels(m, shapes, HSIZ, "centralized")
     # the same kernels at the per-shard shapes of the balanced distributed
     # path: a rolled-back iteration can leave the run's last launches on

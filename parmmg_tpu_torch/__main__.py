@@ -20,6 +20,15 @@ per-rank output unless `-centralized-output` is given;
 `-distributed-output` writes per-rank files (or a `.pvtu`) after any
 input. The checkpoint flags are accepted by the parser and refused with
 `NotImplementedError` naming the ROADMAP item that brings them.
+
+Started as N processes under the env contract of `parallel/multihost.py`
+(as `mpirun -np N parmmg` starts the reference), the processes run as
+one world: every rank runs the CLI on the same arguments, replicates the
+host phases, sweeps the `-nparts` shards it owns (a contiguous block)
+on its own card and joins the others' with one gather a sweep, and
+writes what it is told to write; the result is that of one process bit
+for bit. At `-v 1` each rank prints its gathers and kernel launches as
+one JSON line, `## rank r of N: {...}`.
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-niter", type=int, default=3,
                    help="outer remesh iterations")
     p.add_argument("-nparts", type=int, default=1,
-                   help="number of shards, stacked on the one device")
+                   help="number of shards; under a world of ranks each "
+                   "rank sweeps a contiguous block of them")
     p.add_argument("-nobalance", dest="nobalancing", action="store_true",
                    help="no resharding between iterations (frozen "
                    "interfaces)")
@@ -333,8 +343,28 @@ def main(argv=None, device=None) -> int:
         with timers.phase("output"):
             _save_output(args, out, mesh_out,
                          None if mesh_out is not None else (stacked, comm))
+    if args.verbose >= 1:
+        _report_rank()
     timers.report()
     return 0
+
+
+def _report_rank() -> None:
+    """Under a world of ranks, this rank's gathers (calls, bytes, wall
+    seconds) and kernel launches as one JSON line."""
+    import json
+
+    from . import kernels
+    from .parallel import multihost
+
+    if not multihost.is_multiprocess():
+        return
+    r, w = multihost.rank(), multihost.world_size()
+    g = multihost.GATHERS
+    print(f"## rank {r} of {w}: " + json.dumps(dict(
+        rank=r, world=w, gathers=g["n"], gather_bytes=g["bytes"],
+        gather_s=round(g["seconds"], 6), launches=dict(kernels.LAUNCHES))),
+        flush=True)
 
 
 def _save_output(args, out: str, mesh_out, dist) -> None:

@@ -6,7 +6,9 @@ seconds), loaded with `ctypes`. The build happens at first use, into
 `_build/` next to this package's sources (listed in `.gitignore`), and
 the library's name carries a hash of the sources and flags, so an edited
 kernel is rebuilt. `build_all()` compiles each source to an object with
-its own `nvcc`, all started together, then links the objects.
+its own `nvcc`, all started together, then links the objects, under a
+lock on `_build/.lock` and renamed into place, so processes that start
+together (the ranks of one run) build it once and never load a torn file.
 
 Every wrapper adds one to `LAUNCHES[name]` where it launches its kernel
 and nowhere else, and records the launch's shape, (stream rows, table
@@ -20,6 +22,7 @@ one; a call on an empty stream launches nothing and adds one to
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import json
 import os
@@ -119,6 +122,41 @@ def _run(procs: dict) -> None:
     BUILD_LOGS.update(logs)
 
 
+def _build(out: str) -> None:
+    """Build the library `out` under an exclusive lock on `_build/.lock`,
+    so that processes starting together on a cold `_build/` (the ranks
+    of one run) compile it once: the first to take the lock builds, the
+    others find the library when they get the lock. Objects and library
+    are written under names of this process and renamed into place, so
+    no process ever loads a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return
+        nvcc = nvcc_path()
+        tmp = f"{out[:-3]}.tmp{os.getpid()}"
+        objs = {n: f"{tmp}.{n}.o" for n in SOURCES + PROBES}
+        try:
+            _run({n: subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", objs[n],
+                 os.path.join(SRC_DIR, f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for n in objs})
+            _run({"link": subprocess.Popen(
+                [nvcc, *ARCH, "-shared", "-o", f"{tmp}.so", *objs.values()],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)})
+            with open(f"{tmp}.log.json", "w") as f:
+                json.dump(BUILD_LOGS, f)
+            # the log first: a process that finds the library finds it too
+            os.replace(f"{tmp}.log.json", f"{out[:-3]}.log.json")
+            os.replace(f"{tmp}.so", out)
+        finally:
+            for f in (*objs.values(), f"{tmp}.so", f"{tmp}.log.json"):
+                if os.path.exists(f):
+                    os.remove(f)
+
+
 def build_all() -> float:
     """Build the kernel library unless it is built, and load it. Returns
     the wall seconds."""
@@ -127,20 +165,8 @@ def build_all() -> float:
     if _LIB is None:
         out = library_path()
         if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            nvcc = nvcc_path()
-            objs = {n: f"{out[:-3]}.{n}.o" for n in SOURCES + PROBES}
-            _run({n: subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", objs[n],
-                 os.path.join(SRC_DIR, f"{n}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for n in objs})
-            _run({"link": subprocess.Popen(
-                [nvcc, *ARCH, "-shared", "-o", out, *objs.values()],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)})
-            with open(f"{out[:-3]}.log.json", "w") as f:
-                json.dump(BUILD_LOGS, f)
-        elif os.path.exists(f"{out[:-3]}.log.json"):
+            _build(out)
+        if not BUILD_LOGS and os.path.exists(f"{out[:-3]}.log.json"):
             with open(f"{out[:-3]}.log.json") as f:
                 BUILD_LOGS.update(json.load(f))
         _LIB = ctypes.CDLL(out)

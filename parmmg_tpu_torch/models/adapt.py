@@ -230,19 +230,6 @@ def empty_frontier(mesh: Mesh, ecap: int) -> Frontier:
                     2, tables, False)
 
 
-def stacked_frontier(shards: List[Mesh], ecap: int, changed=None):
-    """Per-shard frontiers of the distributed sweeps over stale tables:
-    each shard's changed mask (default all active, the full-table
-    sweep), with `dirty` and `adja_ok` shared by every shard."""
-    out = []
-    for i, m in enumerate(shards):
-        fr = empty_frontier(m, ecap)
-        if changed is not None:
-            fr = fr._replace(changed=changed[i].to(torch.bool))
-        out.append(fr)
-    return out
-
-
 def pad_changed(changed, pcap: int):
     """Changed masks (one per shard) padded to a grown vertex capacity:
     growth appends slots, so ids are stable and the new tail is

@@ -1,34 +1,45 @@
-"""Distributed remesh driver on one device: shards with interfaces
-frozen within an iteration and displaced between iterations.
+"""Distributed remeshing: shards with interfaces frozen within an
+iteration and displaced between iterations, on one device or across the
+ranks of a `torch.distributed` world.
 
-Counterpart of `parmmg_tpu/models/distributed.py` on its single-process
-path (`_remesh_phase_local`): the mesh is partitioned along a Morton
-curve into `nparts` shards of uniform capacities, carried as a list of
-per-shard `Mesh`es; every iteration remeshes each shard's interior with
-its PARBDY interfaces frozen, re-interpolates the metric (and the
-solution fields, level set and displacement the mesh carries) from the
-pre-remesh snapshot and then, unless `nobalancing` (`-nobalance`),
-rebalances: the shards are stacked (leading shard axis, as the JAX
-package's stacked mesh), tets are recolored by interface displacement
-(`ifc_layers` layers of advancing front) or, on the last iteration and
-in graph mode, by a global weighted Morton cut, and the tets that change
-color migrate to their new shard (`parallel/migrate.py`), so the bands
-frozen in one iteration are interior in the next. A displaced partition
-skewed past `grps_ratio`, a `BalancePolicy` decision or repeated
-capacity misses fall back to a full re-cut (`_rebalance_full`). At the
-end the new vertices get global ids and `merge_adapted` joins the shards
-into one centralized mesh.
+Counterpart of `parmmg_tpu/models/distributed.py`: the mesh is
+partitioned along a Morton curve into `nparts` shards of uniform
+capacities, carried as a list of per-shard `Mesh`es; every iteration
+remeshes each shard's interior with its PARBDY interfaces frozen,
+re-interpolates the metric (and the solution fields, level set and
+displacement the mesh carries) from the pre-remesh snapshot and then,
+unless `nobalancing` (`-nobalance`), rebalances: the shards are stacked
+(leading shard axis, as the JAX package's stacked mesh), tets are
+recolored by interface displacement (`ifc_layers` layers of advancing
+front) or, on the last iteration and in graph mode, by a global weighted
+Morton cut, and the tets that change color migrate to their new shard
+(`parallel/migrate.py`), so the bands frozen in one iteration are
+interior in the next. A displaced partition skewed past `grps_ratio`, a
+`BalancePolicy` decision or repeated capacity misses fall back to a full
+re-cut (`_rebalance_full`). At the end the new vertices get global ids
+and `merge_adapted` joins the shards into one centralized mesh.
 
 Each sweep runs the single-shard `_sweep_body` once per shard (the JAX
 package vmaps it over the shard axis, which gives the same per-shard
 results). What the shards share stays shared: the unique-edge cap from
 the common tet capacity, growth to the largest shard's need, no
 split-dominant phase skip, the convergence rule on the record summed
-over shards, and, with frontier sweeps, the tables' staleness level (the
-largest over the shards) and adjacency validity (all shards). The
+over shards, and, with frontier sweeps, the tables' staleness level
+(the largest over the shards) and adjacency validity (all shards). The
 per-shard frontier masks are carried from sweep to sweep and, through
 the compaction and the migration (as global ids), from one iteration to
 the next; a drained carry skips the iteration's sweeps.
+
+Under a world of ranks (`parallel/multihost.py`, the env contract) every
+rank runs `adapt_distributed` on the same input and holds the full
+state: the host phases are replicated, and only the sweeps split, each
+rank sweeping the shards it owns with one gather of the world's rows a
+sweep (`remesh_phase`, the JAX package's shard-local dispatch; the port
+has no fused SPMD program, so it is the phase at every tet capacity).
+The result is that of one process bit for bit. Whether an iteration
+rolls back is put to a vote of the world, so the ranks roll back
+together; a failed collective raises `multihost.PeerLostError`, which
+no rollback absorbs.
 
 `adapt_stacked_input` is the entry for a mesh that comes distributed
 (`-distributed-input`, per-rank files read by
@@ -56,9 +67,9 @@ import torch
 
 from .. import resolve_device
 from ..core import adjacency, tags
-from ..core.mesh import Mesh, compact, compact_aux
+from ..core.mesh import LEAVES, Mesh, compact, compact_aux
 from ..ops import analysis, interp, quality
-from ..parallel import chkcomm
+from ..parallel import chkcomm, multihost
 from ..parallel import migrate as migrate_mod
 from ..parallel import partition as partition_mod
 from ..parallel.distribute import (
@@ -74,13 +85,14 @@ from .adapt import (
     AdaptOptions,
     CapacityError,
     MemoryBudgetError,
+    SweepStats,
     _check_budget,
     _sweep_body,
     pad_changed,
-    stacked_frontier,
     adapt as adapt_single,
     check_supported,
     default_mem_budget_mb,
+    empty_frontier,
     estimate_target_ntet,
     local_hausd_table,
     prepare_metric,
@@ -185,33 +197,6 @@ def ensure_capacity_stacked(shards: List[Mesh],
 # the remesh phase on every shard
 # ---------------------------------------------------------------------------
 
-def _vsweep(shards: List[Mesh], ecap: int, opts: AdaptOptions, hausd,
-            frontier=None):
-    """One sweep of every shard, with the split-dominant skip off (a
-    per-shard skip would make the shards' programs differ). Returns
-    (shards, per-shard SweepStats list), and with `frontier` (a list of
-    per-shard Frontiers with shared `dirty`/`adja_ok`) the successor
-    frontiers, whose `dirty` is the largest and `adja_ok` the AND over
-    the shards: a stricter level is exact for every shard."""
-    kw = dict(noinsert=opts.noinsert, noswap=opts.noswap, nomove=opts.nomove,
-              nosurf=opts.nosurf, hausd=hausd, phase_skip=False)
-    out, stats, frs = [], [], []
-    for i, m in enumerate(shards):
-        if frontier is None:
-            m, s = _sweep_body(m, ecap, **kw)
-        else:
-            m, s, f = _sweep_body(m, ecap, frontier=frontier[i], **kw)
-            frs.append(f)
-        out.append(m)
-        stats.append(s)
-    if frontier is None:
-        return out, stats
-    dirty = max(f.dirty for f in frs)
-    adja_ok = all(f.adja_ok for f in frs)
-    return out, stats, [f._replace(dirty=dirty, adja_ok=adja_ok)
-                        for f in frs]
-
-
 def _imbalance(shard_ne: np.ndarray) -> float:
     """Largest over mean live tets of the shards, to 4 places."""
     return round(float(shard_ne.max()) / max(float(shard_ne.mean()), 1.0),
@@ -273,46 +258,168 @@ def _drained_rec(shards: List[Mesh], history: List[dict]) -> dict:
     return rec
 
 
-def _frontier_stale(fr, shards: List[Mesh], ecap: int) -> bool:
-    """Capacity growth or an edge-cap event changed the table shapes:
-    the carried frontier is re-seeded (its changed masks survive, padded;
-    the tables restart stale)."""
-    f, m = fr[0], shards[0]
-    return (f.changed.shape[0] != m.pcap or f.tables[0].shape[0] != ecap
-            or f.tables[2].shape[0] != m.tcap)
+def _pad_changed1(changed, pcap: int):
+    """One shard's `pad_changed`: [PC_old] -> [PC] (growth appends
+    slots; ids are stable, the new tail is inactive)."""
+    return pad_changed([changed.to(torch.bool)], pcap)[0]
+
+
+def _frontier_stale(fr, m: Mesh, ecap: int) -> bool:
+    """Capacity growth or an edge-cap event changed the shard's table
+    shapes: its carried frontier is re-seeded (the changed mask
+    survives, padded; the tables restart stale)."""
+    return (fr.changed.shape[0] != m.pcap or fr.tables[0].shape[0] != ecap
+            or fr.tables[2].shape[0] != m.tcap)
+
+
+# a rank's failure that the iteration loop rolls back: numeric, capacity
+# or budget (`CapacityError` and a card's out-of-memory error are
+# RuntimeErrors)
+_ABSORBED = (FloatingPointError, ValueError, RuntimeError, OverflowError)
+# the bits of a vote of the world: some rank failed; some rank has left
+# the iteration (its vote is the iteration's last)
+_FAILED, _ENDED = 1, 2
+
+
+class PeerFailure(RuntimeError):
+    """Another rank of the world failed in this iteration: what the ranks
+    that did not fail raise, so that the world rolls back together."""
+
+
+def _agreed(fn, tag: str):
+    """`fn()`, this rank's own work before the collective `tag`, its
+    failure put to a vote of the world first: every rank raises at this
+    point (its own error, or `PeerFailure`) or none does. The error
+    raised carries `ended`: a peer's vote was its iteration's last, so
+    this one ends the iteration here too. In one process, `fn()`."""
+    if not multihost.is_multiprocess():
+        return fn()
+    err = out = None
+    try:
+        out = fn()
+    except multihost.PeerLostError:
+        raise
+    except _ABSORBED as e:
+        err = e
+    flags = multihost.agree_flags(_FAILED if err is not None else 0,
+                                  tag=f"{tag}-vote")
+    if flags:
+        if err is None:
+            err = PeerFailure(f"a peer rank failed before '{tag}'")
+        err.ended = bool(flags & _ENDED)
+        raise err
+    return out
+
+
+def _iteration_vote(err):
+    """The world's verdict on an iteration, by one vote at its end
+    (unless a vote inside it ended it already): this rank's failure
+    `err`, `PeerFailure` where only another rank failed, or None."""
+    if not multihost.is_multiprocess() or getattr(err, "ended", False):
+        return err
+    flags = multihost.agree_flags(
+        _ENDED | (_FAILED if err is not None else 0), tag="iteration-vote")
+    if flags & _FAILED and err is None:
+        return PeerFailure("a peer rank failed in this iteration")
+    return err
 
 
 def remesh_phase(shards: List[Mesh], opts: AdaptOptions,
                  emult: List[float], history: List[dict], it: int,
                  hausd, fr0=None):
     """Operator sweeps to convergence on every shard: the shared
-    `run_sweep_loop` engine with records summed over the shards.
+    `run_sweep_loop` engine with records summed over the shards (the JAX
+    package's `_remesh_phase_shardlocal`; the port has no fused SPMD
+    program, so this is the phase at every tet capacity).
+
+    Each sweep runs `_sweep_body` on the shards this rank owns
+    (`shard.owned_shards`: all of them in one process), with the
+    split-dominant skip off (a per-shard skip would make the shards'
+    programs differ), then joins the world's shards and sweep stats by
+    one `multihost.gather_stacked` (the identity in one process), so
+    every rank holds the full state again. Host control flow stays
+    replicated: capacity growth, convergence and the frontier's restarts
+    read the gathered state, and each sweep's record is built from the
+    gathered stats. Where some rank would own no shard (more ranks than
+    shards), every rank sweeps every shard and nothing is gathered. A
+    rank's failure in its own sweeps is put to a vote before the gather
+    (`_agreed`), so the world raises, and rolls back, together.
 
     With `opts.frontier`, `fr0` is the iteration's carried active set
     (per-shard [PC] bool masks; None = all active, the full-table
     sweep): the first sweep gates on its one-ring closure, and a drained
     carry skips the sweeps outright (an empty-frontier sweep is the
-    identity). Returns (shards, changed masks | None)."""
-    use_fr = bool(opts.frontier)
-    if use_fr and fr0 is not None:
+    identity). Each shard's exit staleness level and adjacency validity
+    ride the sweep's gather, and every shard takes the world's (the
+    largest level, all valid): a stricter level is exact for every
+    shard. The JAX package keeps them per shard, which leaves the meshes
+    as they are but not the stats: a shard that reuses its tables
+    reports their carried `n_unique` where a fresh rebuild counts anew,
+    and `shard_active`, which the `BalancePolicy` reads, follows it
+    (ROADMAP queue 3). The changed masks are gathered once more at the
+    end. Returns (shards, changed masks | None)."""
+    from ..parallel.shard import owned_shards
+
+    if opts.frontier and fr0 is not None:
         if int(torch.stack([c.sum() for c in fr0]).sum()) == 0:
             rec = _drained_rec(shards, history)
             rec.update(iter=it, sweep=0)
             history.append(rec)
             return shards, fr0
-    fr_cell: list = [None]
+    D = len(shards)
+    everyone = multihost.world_size() > D
+    owned = tuple(range(D)) if everyone else owned_shards(D)
+    use_fr = bool(opts.frontier)
+    frs: dict = {}
+    kw = dict(noinsert=opts.noinsert, noswap=opts.noswap, nomove=opts.nomove,
+              nosurf=opts.nosurf, hausd=hausd, phase_skip=False)
+
+    def gather(rows_fn, tag):
+        rows = _agreed(rows_fn, tag)
+        return rows if everyone else multihost.gather_stacked(rows, D,
+                                                              tag=tag)
+
+    def sweep_owned(s, ecap):
+        rows = []
+        for i in owned:
+            m = s[i]
+            if use_fr:
+                fr = frs.get(i)
+                if fr is None or _frontier_stale(fr, m, ecap):
+                    if fr is not None:
+                        # mid-loop growth: the changed mask survives,
+                        # the tables restart stale
+                        chg = _pad_changed1(fr.changed, m.pcap)
+                    elif fr0 is not None:
+                        chg = _pad_changed1(fr0[i], m.pcap)
+                    else:
+                        chg = None  # full frontier: the full sweep
+                    fr = empty_frontier(m, ecap)
+                    if chg is not None:
+                        fr = fr._replace(changed=chg)
+                m, stats, frs[i] = _sweep_body(m, ecap, frontier=fr, **kw)
+            else:
+                m, stats = _sweep_body(m, ecap, **kw)
+            row = tuple(getattr(m, k) for k in LEAVES) + tuple(stats)
+            if use_fr:
+                row += (torch.tensor([frs[i].dirty, frs[i].adja_ok],
+                                     dtype=torch.int32, device=m.device),)
+            rows.append(row)
+        return rows
 
     def sweep_fn(s, ecap):
-        if not use_fr:
-            s, stats = _vsweep(s, ecap, opts, hausd)
-            return s, _rec_from_stats(s, stats)
-        fr = fr_cell[0]
-        if fr is None or _frontier_stale(fr, s, ecap):
-            chg = ([f.changed for f in fr] if fr is not None else fr0)
-            fr = stacked_frontier(
-                s, ecap, None if chg is None else pad_changed(chg, s[0].pcap))
-        s, stats, fr_cell[0] = _vsweep(s, ecap, opts, hausd, frontier=fr)
-        return s, _rec_from_stats(s, stats)
+        rows = gather(lambda: sweep_owned(s, ecap), "sweep")
+        nl, ns = len(LEAVES), len(SweepStats._fields)
+        if use_fr:
+            # the world's staleness level and adjacency validity
+            lv = torch.stack([r[-1] for r in rows]).tolist()
+            dirty, adja_ok = max(x[0] for x in lv), all(x[1] for x in lv)
+            for i in owned:
+                frs[i] = frs[i]._replace(dirty=dirty, adja_ok=adja_ok)
+        out = [s[i].replace(**dict(zip(LEAVES, r[:nl])))
+               for i, r in enumerate(rows)]
+        return out, _rec_from_stats(out, [SweepStats(*r[nl:nl + ns])
+                                          for r in rows])
 
     shards = run_sweep_loop(
         shards, opts, emult, history, it,
@@ -320,14 +427,17 @@ def remesh_phase(shards: List[Mesh], opts: AdaptOptions,
         tcap_fn=lambda s: s[0].tcap, sweep_fn=sweep_fn)
     if not use_fr:
         return shards, None
-    if fr_cell[0] is not None:
-        chg = [f.changed for f in fr_cell[0]]
+    pcap = shards[0].pcap
+    if frs:
+        chg = [r[0] for r in gather(
+            lambda: [(_pad_changed1(frs[i].changed, pcap),) for i in owned],
+            "changed")]
     elif fr0 is not None:
         chg = fr0
     else:
         chg = [torch.ones(m.pcap, dtype=torch.bool, device=m.device)
                for m in shards]
-    return shards, pad_changed(chg, shards[0].pcap)
+    return shards, pad_changed(chg, pcap)
 
 
 def interp_phase(shards: List[Mesh], old: List[Mesh],
@@ -509,17 +619,22 @@ def _iteration_loop(shards: List[Mesh], opts: DistOptions, hausd,
     fr_carry = None
     icap = icap0
     for it in range(opts.niter):
+        err = None
         try:
             shards, icap, fr_carry = _one_iteration(
                 shards, opts, hausd, history, it, emult, icap, fr_carry,
                 policy, balance)
             validate(shards, opts, it)
-        except NotImplementedError:
+        except (NotImplementedError, multihost.PeerLostError):
+            # a lost peer cannot be rolled back around: the other ranks
+            # would wait for this one in the next collective
             raise
-        except (FloatingPointError, ValueError, RuntimeError,
-                OverflowError) as e:
-            history.append(dict(iter=it, failure=str(e),
-                                error=type(e).__name__))
+        except _ABSORBED as e:
+            err = e
+        err = _iteration_vote(err)
+        if err is not None:
+            history.append(dict(iter=it, failure=str(err),
+                                error=type(err).__name__))
             shards = last_good
             fr_carry = None
             icap = None

@@ -593,13 +593,145 @@ def _assert_comm(comm, ref: dict, key: str):
 # ---------------------------------------------------------------------------
 
 
+def _case_mesh(case: str) -> Mesh:
+    """The port's input mesh of a centralized case: the unit cube n=5,
+    with the graded size and the linear field but in the `hsiz` case."""
+    mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64, device="cpu")
+    if case == "hsiz":
+        return mesh
+    return mesh.replace(met=_graded(mesh.vert), met_set=True,
+                        fields=torch.as_tensor(
+                            _linear_fields(mesh.vert.numpy())),
+                        field_ncomp=(1, 3))
+
+
+# the two-rank run: each rank a fresh interpreter under the env contract
+# (gloo on 127.0.0.1), killed past its wall limit
+RANKS = 2
+RANK_WALL_S = 120
+_RANK_CHILD = """
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import test_torch_distributed
+test_torch_distributed.rank_child(sys.argv[3])
+"""
+
+
+def _failing_sweeps(fail_it: int):
+    """Patches of `models.distributed` under which rank 1's first sweep
+    of its first owned shard in iteration `fail_it` raises the error a
+    card out of memory raises. Returns [(name, patched)]."""
+    from parmmg_tpu_torch.parallel import multihost
+
+    phase, body = t_dist.remesh_phase, t_dist._sweep_body
+    armed = [False]
+
+    def remesh_phase(shards, opts, emult, history, it, *a, **k):
+        armed[0] = it == fail_it and multihost.rank() == 1
+        return phase(shards, opts, emult, history, it, *a, **k)
+
+    def sweep_body(*a, **k):
+        if armed[0]:
+            raise torch.OutOfMemoryError("injected: out of memory")
+        return body(*a, **k)
+
+    return [("remesh_phase", remesh_phase), ("_sweep_body", sweep_body)]
+
+
+def rank_child(out: str) -> None:
+    """One rank of the two-rank `balanced` run (`start_ranks`), on the
+    CPU at f64 on one thread: `adapt_distributed`, then the sharded
+    reductions of its final state; then the same run again with rank
+    1's sweep failing in the first iteration after the first that
+    swept (`_failing_sweeps`). Pickled to `out` with the rank's
+    gathers of the first run. Imports no JAX."""
+    from parmmg_tpu_torch.parallel import multihost, shard
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    assert multihost.world_size() == RANKS
+
+    def run():
+        return t_dist.adapt_distributed(
+            _case_mesh("balanced"),
+            t_dist.DistOptions(**_case_options("balanced")), device="cpu")
+
+    res = dict(run=run(), rank=multihost.rank())
+    res.update(hist=shard.sharded_quality_histogram(res["run"][0]),
+               len=shard.sharded_length_stats(res["run"][0]),
+               gathers=dict(multihost.GATHERS))
+    swept = [h for h in res["run"][2]["history"]
+             if "sweep" in h and not h.get("skipped")]
+    res["fail_it"] = min(h["iter"] for h in swept if h["iter"] > 0)
+    saved = [(k, getattr(t_dist, k)) for k, _ in
+             _failing_sweeps(res["fail_it"])]
+    try:
+        for k, f in _failing_sweeps(res["fail_it"]):
+            setattr(t_dist, k, f)
+        res["failed"] = run()
+    finally:
+        for k, f in saved:
+            setattr(t_dist, k, f)
+    torch.save(res, out)
+
+
+def start_ranks(tmp):
+    """Start the `RANKS` rank children of `rank_child`. Returns `wait()`:
+    each child's (exit code, log, pickled result or None), the children
+    killed past `RANK_WALL_S` from the start."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = pathlib.Path(__file__).resolve().parent
+    t0 = time.monotonic()
+    procs = []
+    for r in range(RANKS):
+        env = dict(os.environ, PMMGTPU_COORDINATOR=f"127.0.0.1:{port}",
+                   PMMGTPU_NUM_PROCS=str(RANKS), PMMGTPU_PROC_ID=str(r),
+                   OMP_NUM_THREADS="1")
+        out, log = tmp / f"rank{r}.pt", tmp / f"rank{r}.log"
+        with open(log, "w") as fh:
+            procs.append((out, log, subprocess.Popen(
+                [sys.executable, "-c", _RANK_CHILD, str(here),
+                 str(here.parent), str(out)],
+                cwd=here.parent, env=env, stdout=fh,
+                stderr=subprocess.STDOUT)))
+
+    def wait():
+        got = []
+        for out, log, proc in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, t0 + RANK_WALL_S
+                                           - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            res = (torch.load(out, weights_only=False)
+                   if rc == 0 and out.exists() else None)
+            got.append((rc, log.read_text()[-8000:], res))
+        got.append(time.monotonic() - t0)
+        return got
+
+    return wait
+
+
 @pytest.fixture(scope="module")
 def torch_runs(ref, tmp_path_factory):
     """The port's runs of every case (CPU, f64), while the JAX side's
     runs of the same cases go on in their child processes, with the
     distribute part's: the scheduler tends to hand the module's next
-    test to the same worker, which then finds it done."""
+    test to the same worker, which then finds it done. The two-rank
+    children of the `balanced` case run alongside (`runs["ranks"]`:
+    each rank's exit code, log and result, then the wall seconds)."""
     ref.start(*CASES, "distribute")
+    ranks = start_ranks(tmp_path_factory.mktemp("ranks"))
     runs = {}
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -608,30 +740,117 @@ def torch_runs(ref, tmp_path_factory):
             if case == "input":
                 runs[case] = _input_run(tmp_path_factory.mktemp("tin"))
                 continue
-            mesh = t_gen.unit_cube_mesh(5, dtype=torch.float64,
-                                        device="cpu")
-            kw = _case_options(case)
-            if case != "hsiz":
-                mesh = mesh.replace(met=_graded(mesh.vert), met_set=True,
-                                    fields=torch.as_tensor(
-                                        _linear_fields(mesh.vert.numpy())),
-                                    field_ncomp=(1, 3))
             runs[case] = t_dist.adapt_distributed(
-                mesh, t_dist.DistOptions(**kw), device="cpu")
+                _case_mesh(case), t_dist.DistOptions(**_case_options(case)),
+                device="cpu")
     finally:
         torch.use_deterministic_algorithms(prev)
+        runs["ranks"] = ranks()
     return runs
 
 
 def test_adapt_distributed_equals_live_jax(ref, torch_runs):
     """Every case (hsiz 0.18 and graded size with -nobalance, graded size
-    balanced) against the live JAX runs; and the distributed workflow on
+    balanced) against the live JAX runs; the distributed workflow on
     the graded mesh's split (`_check_input`): the `input` case, balanced
     from per-rank binary files with the communicator checks, against the
-    live JAX run."""
+    live JAX run; and the balanced case run by two ranks
+    (`_check_ranks`)."""
     for case in CASES[:-1]:
         _check_case(ref(case), torch_runs[case], case)
     _check_input(ref("input"), *torch_runs["input"])
+    _check_ranks(ref("balanced"), torch_runs["balanced"],
+                 torch_runs["ranks"])
+
+
+def _check_ranks(r, one, ranks):
+    """Both ranks of the two-rank `balanced` run (gloo, each sweeping
+    two of the four shards) give the same stacked mesh, node tables and
+    history as each other and as the one-process run `one`, leaf for
+    leaf (the rebalancings but their wall times too), and pass
+    `_check_case` against the live JAX run; each made the same gathers
+    (one a sweep, one for the changed masks an iteration that swept, one
+    a sharded reduction), and its sharded histogram and length stats
+    equal `merge_stacked_*` on the stacked mesh. In the second run, one
+    rank's sweep fails: both ranks roll back together to LOWFAILURE with
+    the same mesh and node tables, and the history of the one-process
+    run up to the failed iteration (`_check_failed_ranks`)."""
+    from parmmg_tpu_torch.ops import quality as t_q
+
+    *ranks, wall = ranks
+    for rc, log, _ in ranks:
+        assert rc == 0, log
+    print(f"two-rank balanced run: {wall:.1f} s wall")
+    st1, comm1, info1 = one
+    s1 = st1.to_numpy_state()
+    hist = info1["history"]
+    swept = [h for h in hist if "sweep" in h and not h.get("skipped")]
+    gathers = []
+    for k, (_, _, res) in enumerate(ranks):
+        assert res["rank"] == k
+        st, comm, info = res["run"]
+        got = st.to_numpy_state()
+        for leaf in LEAVES:
+            np.testing.assert_array_equal(got[leaf], s1[leaf],
+                                          err_msg=(k, leaf))
+        assert (st.field_ncomp, st.met_set) == (st1.field_ncomp,
+                                                st1.met_set)
+        for f in COMM:
+            assert torch.equal(getattr(comm, f), getattr(comm1, f)), (k, f)
+        assert info["history"] == hist, k
+        assert int(info["status"]) == int(info1["status"])
+        assert [{x: b[x] for x in b if x != "wall_s"}
+                for b in info["balance"]] == [
+            {x: b[x] for x in b if x != "wall_s"} for b in info1["balance"]]
+        _check_case(r, res["run"], "balanced")
+        shards = t_distr.unstack_mesh(st)
+        want_h = t_q.merge_stacked_histograms(
+            [t_q.quality_histogram(m) for m in shards])
+        want_l = t_q.merge_stacked_length_stats(
+            [t_q.mesh_length_stats(m, int(shards[0].tcap * 1.7) + 64)
+             for m in shards])
+        for got_x, want_x in ((res["hist"], want_h), (res["len"], want_l)):
+            for f in dataclasses.fields(want_x):
+                assert torch.equal(torch.as_tensor(getattr(got_x, f.name)),
+                                   torch.as_tensor(getattr(want_x, f.name))), \
+                    (k, f.name)
+        gathers.append(res["gathers"])
+    # one gather a sweep, one for the changed masks an iteration that
+    # swept, one for each sharded reduction
+    assert gathers[0]["n"] == gathers[1]["n"] == (
+        len(swept) + len({h["iter"] for h in swept}) + 2)
+    assert gathers[0]["bytes"] == gathers[1]["bytes"] > 0
+    _check_failed_ranks(hist, [res for _, _, res in ranks])
+
+
+def _check_failed_ranks(hist, res):
+    """Both ranks of the run whose rank 1 failed in a sweep of iteration
+    `fail_it`: LOWFAILURE on both, the same stacked mesh, node tables
+    and balancing, the one-process history before that iteration, and a
+    failure record naming the error on rank 1 and the peer's failure on
+    rank 0."""
+    from parmmg_tpu_torch.core import tags
+
+    fail_it = res[0]["fail_it"]
+    assert res[1]["fail_it"] == fail_it
+    runs = [r["failed"] for r in res]
+    for st, comm, info in runs:
+        assert int(info["status"]) == int(tags.ReturnStatus.LOWFAILURE)
+    (st0, comm0, info0), (st1, comm1, info1) = runs
+    a, b = st0.to_numpy_state(), st1.to_numpy_state()
+    for leaf in LEAVES:
+        np.testing.assert_array_equal(a[leaf], b[leaf], err_msg=leaf)
+    for f in COMM:
+        assert torch.equal(getattr(comm0, f), getattr(comm1, f)), f
+    assert [{x: v[x] for x in v if x != "wall_s"} for v in info0["balance"]] \
+        == [{x: v[x] for x in v if x != "wall_s"} for v in info1["balance"]]
+    before = [h for h in hist if h["iter"] < fail_it]
+    for info, error in ((info0, "PeerFailure"), (info1, "OutOfMemoryError")):
+        h = info["history"]
+        assert h[:len(before)] == before
+        last = h[-1]
+        assert (last["iter"], last["error"]) == (fail_it, error), last
+        assert "failure" in last
 
 
 def _loaded_input(tmp):
@@ -1152,13 +1371,233 @@ def _check_refusals(tmp_path, monkeypatch):
     assert t_mig.resolve_balance_band(opts) is None
 
 
+# the malformed env contracts of tests/test_m10_multihost.py:19-50, in
+# that order: (PMMGTPU_NUM_PROCS, PMMGTPU_PROC_ID), None = unset
+_BAD_ENVS = (("2", "2"), ("2", "-1"), ("zebra", "-1"), ("0", "0"),
+             ("0", None))
+
+
+def _env_errors(mh, monkeypatch):
+    """The `MultihostConfigError` message `mh.init_from_env()` raises on
+    each of `_BAD_ENVS`."""
+    msgs = []
+    with monkeypatch.context() as mp:
+        mp.setattr(mh, "_INITIALIZED", False)
+        mp.setenv("PMMGTPU_COORDINATOR", "127.0.0.1:1")
+        for world, rank in _BAD_ENVS:
+            mp.setenv("PMMGTPU_NUM_PROCS", world)
+            if rank is None:
+                mp.delenv("PMMGTPU_PROC_ID")
+            else:
+                mp.setenv("PMMGTPU_PROC_ID", rank)
+            with pytest.raises(mh.MultihostConfigError) as e:
+                mh.init_from_env()
+            msgs.append(str(e.value))
+        assert not mh._INITIALIZED
+    return msgs
+
+
+def _stacked_fixture():
+    """tests/test_m24_balance.py's `_stacked_fixture`: the unit cube n=3,
+    analysed, iso size 0.25, split in 2 shards with global ids and each
+    shard's adjacency."""
+    from parmmg_tpu_torch.ops import analysis as t_an
+
+    mesh = t_an.analyze(t_adj.build_adjacency(
+        t_gen.unit_cube_mesh(3, dtype=torch.float64, device="cpu")))
+    opts = t_dist.DistOptions(hsiz=0.25, hgrad=None, niter=1, verbose=0)
+    mesh = t_adapt.prepare_metric(mesh, opts, int(mesh.tcap * 1.6) + 64)
+    part = t_part.sfc_partition(mesh, 2).numpy()
+    st, _ = t_distr.split_mesh(mesh, part, 2)
+    st = t_distr.assign_global_ids(st)
+    return [t_adj.build_adjacency(m) for m in t_distr.unstack_mesh(st)]
+
+
+def _check_multihost(tmp_path, monkeypatch):
+    """The multi-process layer in one process: `init_from_env` raises the
+    JAX package's messages on every malformed env contract, before any
+    rendezvous (the port names no `jax.distributed.initialize`);
+    `owned_shards` deals contiguous ascending blocks; `barrier`,
+    `agree_flags` and `gather_stacked` are identities; the sharded
+    reductions equal `merge_stacked_*`; a lost peer raises through
+    `adapt_distributed` instead of rolling back; a peer's failure, put
+    to the world's votes, rolls this rank back with the vote that
+    carried it as the iteration's last (`_check_votes`); and the kernel
+    build survives two processes starting on a cold build directory."""
+    from parmmg_tpu.parallel import multihost as j_mh
+    from parmmg_tpu_torch.ops import quality as t_q
+    from parmmg_tpu_torch.parallel import multihost as t_mh
+    from parmmg_tpu_torch.parallel import shard as t_shard
+
+    want = [m.replace("jax.distributed.initialize", "the rendezvous")
+            for m in _env_errors(j_mh, monkeypatch)]
+    assert _env_errors(t_mh, monkeypatch) == want
+    assert [w.split(" must")[0].split(" out of")[0] for w in want] == [
+        "PMMGTPU_PROC_ID=2", "PMMGTPU_PROC_ID=-1",
+        "PMMGTPU_NUM_PROCS='zebra' / PMMGTPU_PROC_ID='-1'",
+        "PMMGTPU_NUM_PROCS=0", "multi-host env contract incomplete: "
+        "PMMGTPU_COORDINATOR='127.0.0.1:1' requires PMMGTPU_NUM_PROCS "
+        "(world size) and PMMGTPU_PROC_ID (0-based rank) to be set as "
+        "well"]
+
+    for d in (4, 5):
+        for world in (1, 2, 3):
+            blocks = [t_shard.owned_shards(d, r, world)
+                      for r in range(world)]
+            assert sum(blocks, ()) == tuple(range(d)), (d, world)
+            sizes = [len(b) for b in blocks]
+            assert sizes == sorted(sizes, reverse=True) \
+                and sizes[0] - sizes[-1] <= 1, (d, world)
+    assert t_shard.owned_shards(5) == tuple(range(5))
+    assert t_shard.owned_shards(2, 2, 3) == ()
+
+    assert not t_mh.is_multiprocess() and t_mh.world_size() == 1
+    t_mh.barrier()
+    assert t_mh.agree_flags(6) == 6
+    rows = [(torch.arange(3), torch.ones(2, dtype=torch.bool))
+            for _ in range(2)]
+    got = t_mh.gather_stacked(rows, 2)
+    assert all(a is b for g, r in zip(got, rows) for a, b in zip(g, r))
+
+    shards = _stacked_fixture()
+    ecap = int(shards[0].tcap * 1.7) + 64
+    for got, want in (
+            (t_shard.sharded_quality_histogram(shards),
+             t_q.merge_stacked_histograms(
+                 [t_q.quality_histogram(m) for m in shards])),
+            (t_shard.sharded_length_stats(t_distr.stack_meshes(shards)),
+             t_q.merge_stacked_length_stats(
+                 [t_q.mesh_length_stats(m, ecap) for m in shards]))):
+        for f in dataclasses.fields(want):
+            assert torch.equal(torch.as_tensor(getattr(got, f.name)),
+                               torch.as_tensor(getattr(want, f.name))), f.name
+
+    def lost(*a, **k):
+        raise t_mh.PeerLostError("collective 'sweep' failed (rank 0)")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(t_mh, "gather_stacked", lost)
+        with pytest.raises(t_mh.PeerLostError):
+            _small_run()
+    _check_votes(t_mh, monkeypatch)
+    _check_build_race(tmp_path)
+
+
+def _small_run():
+    return t_dist.adapt_distributed(
+        t_gen.unit_cube_mesh(3, dtype=torch.float64, device="cpu"),
+        t_dist.DistOptions(hsiz=0.3, niter=2, nparts=2, min_shard_elts=16,
+                           max_sweeps=2), device="cpu")
+
+
+def _check_votes(t_mh, monkeypatch):
+    """A world of one rank that believes it has peers, whose first vote
+    carries a peer's failure: at a sweep's vote (the peer's own sweep
+    failed) this rank raises `PeerFailure` there and votes once more at
+    the iteration's end; where the peer's vote was its iteration's last
+    (it failed outside the sweeps) this rank ends the iteration on that
+    vote. Either way the run rolls back to LOWFAILURE at iteration 0."""
+    from parmmg_tpu_torch.core import tags
+
+    for peer, want in ((t_dist._FAILED, ["sweep-vote", "iteration-vote"]),
+                       (t_dist._FAILED | t_dist._ENDED, ["sweep-vote"])):
+        votes = []
+
+        def agree(value, tag="agree"):
+            votes.append(tag)
+            return value | (peer if len(votes) == 1 else 0)
+
+        with monkeypatch.context() as mp:
+            mp.setattr(t_mh, "is_multiprocess", lambda: True)
+            mp.setattr(t_mh, "agree_flags", agree)
+            st, _, info = _small_run()
+        assert votes == want, (peer, votes)
+        assert int(info["status"]) == int(tags.ReturnStatus.LOWFAILURE)
+        last = info["history"][-1]
+        assert (last["iter"], last["error"]) == (0, "PeerFailure"), last
+
+
+# a stand-in for nvcc: books the call, then writes its output in two
+# steps with a pause between them (a reader in the pause sees a torn file)
+_NVCC_STUB = """#!{python}
+import os, sys, time
+args = sys.argv[1:]
+with open(os.environ["NVCC_CALLS"], "a") as f:
+    f.write(("link" if "-shared" in args else "compile") + "\\n")
+with open(args[args.index("-o") + 1], "w") as f:
+    f.write("half")
+    f.flush()
+    time.sleep(0.3)
+    f.write("-whole")
+"""
+# a process of the race: `build_all()` into the given directory with the
+# stub as nvcc and a loader that refuses a torn library, once the start
+# file exists
+_RACER = """
+import os, sys, time
+sys.path.insert(0, sys.argv[4])
+from parmmg_tpu_torch.kernels import build
+build.BUILD_DIR, start = sys.argv[1], sys.argv[3]
+build.nvcc_path = lambda: sys.argv[2]
+
+def load(path):
+    text = open(path).read()
+    assert text == "half-whole", f"torn library: {text!r}"
+    return text
+
+build.ctypes.CDLL = load
+while not os.path.exists(start):
+    time.sleep(0.01)
+build.build_all()
+print("loaded", build._LIB)
+"""
+
+
+def _check_build_race(tmp_path):
+    """Two processes start `build_all()` together on a cold build
+    directory (nvcc and the loader stubbed): the library is compiled and
+    linked once, both load it whole, and no temporary file is left."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from parmmg_tpu_torch.kernels import build
+
+    d = tmp_path / "race"
+    d.mkdir()
+    stub = d / "nvcc"
+    stub.write_text(_NVCC_STUB.format(python=sys.executable))
+    stub.chmod(0o755)
+    calls, start = d / "calls", d / "start"
+    bdir = d / "_build"
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    env = dict(os.environ, NVCC_CALLS=str(calls))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RACER, str(bdir), str(stub), str(start),
+         root], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for _ in range(2)]
+    start.touch()
+    for p in procs:
+        out = p.communicate(timeout=60)[0]
+        assert p.returncode == 0 and "loaded half-whole" in out, out
+    n_obj = len(build.SOURCES + build.PROBES)
+    assert sorted(calls.read_text().split()) == \
+        ["compile"] * n_obj + ["link"]
+    names = sorted(f.name for f in bdir.iterdir())
+    lib = [n for n in names if n.endswith(".so")]
+    assert len(lib) == 1 and names == sorted(
+        [".lock", lib[0], lib[0][:-3] + ".log.json"]), names
+
+
 def test_snapshot_and_cli(tmp_path, monkeypatch):
     """The interpolation snapshot survives a remesh phase unchanged,
     `-nparts 4` runs through the CLI with and without balancing, and the
     rollback absorbs the failures the JAX driver absorbs but no kernel
-    failure; what the slice leaves out is refused (see the checks
-    above)."""
+    failure; what the slice leaves out is refused; the multi-process
+    layer holds in one process (see the checks above)."""
     _check_snapshot_untouched()
     _check_cli_round_trip(tmp_path)
     _check_rollback_classes(monkeypatch)
     _check_refusals(tmp_path, monkeypatch)
+    _check_multihost(tmp_path, monkeypatch)
