@@ -32,6 +32,19 @@ CUDA toolkit and PyTorch built for CUDA. Phases, each raising on failure:
    the coordinates, which must give the field-less mesh bit for bit and
    its launches, and write `<out>.fields.sol` with the linear functions
    at the output vertices (within FIELD_TOL).
+2g. library API (`parmmg_tpu_torch.api`, the C ABI shim): `ParMesh.load_mesh`
+   of the rung's input with `DPARAM_hsiz` 0.04, `IPARAM_niter` 1 and
+   `DPARAM_hgrad` 0 must return SUCCESS with the CLI's mesh bit for bit
+   and its launches; the same parameters on the rung's arrays through
+   the staged setters must give a conforming mesh in the rung's window
+   (and the CLI's mesh bit for bit where the staged leaves equal the
+   loaded ones; which held is printed); the same buffers through the
+   shim, from `native/capi_example.c` built with gcc and run as a
+   process of its own on the card, must give the staged run's mesh bit
+   for bit, and its `pmmgtpu_adapt_file` on the rung a conforming mesh
+   with qmin > 0; `ParMesh(nparts=4)` on 2c's graded cube with
+   `IPARAM_niter` 1 must return SUCCESS, launch all four kernels and
+   give consistent global numberings and owners;
 2d. level-set path: ls = |p - (0.5, 0.5, 0.5)| - 0.3 as the -sol of
    `-ls -hsiz 0.04 -niter 1 -hgrad 0 -out ls.vtu` on the same cube,
    counters read likewise; the .vtu, reloaded with `load_vtu`, must be
@@ -225,14 +238,14 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3, symbol: str | None = None):
+def time_ms(fn, reps: int = 25, warm: int = 3, symbol: tuple | None = None):
     """(device ms, call ms) of one call of `fn` over `reps` calls.
 
     Device ms: the GPU time of the kernels the calls launched, read from
     `torch.profiler` (CUPTI) records, over `reps` (a mean) — the per-call
     CUDA-event time is dominated by the host's launch overhead at these
     sizes. With `symbol`, only the records of kernels whose name holds
-    it count, and a capture counts only where it holds a whole multiple
+    each of its strings count, and a capture counts only where it holds a whole multiple
     of `reps` of them: late in a process that made many captures, a
     capture can come back with none or some of its kernel's records,
     and with a few records that are not its calls' (chip runs, PR 10).
@@ -263,19 +276,23 @@ def time_ms(fn, reps: int = 25, warm: int = 3, symbol: str | None = None):
             torch.cuda.synchronize()
         recs = [e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == DeviceType.CUDA
-                and (symbol is None or symbol in e.name)]
+                and (symbol is None or all(x in e.name for x in symbol))]
         if recs and (symbol is None or len(recs) % reps == 0):
             return sum(recs) / reps / 1e3, statistics.median(calls)
         print(f"## note: a profiler capture held {len(recs)} records of "
-              f"{symbol or 'any kernel'} for {reps} calls; made again",
+              f"{'/'.join(symbol or ('any kernel',))} for {reps} calls; "
+              "made again",
               flush=True)
     return None, statistics.median(calls)
 
 
-# the name of each kernel's device function, as the profiler reports it
-SYMBOLS = {"quality_vol": "tile_kernel", "collapse_cavity": "tile_kernel",
-           "split_midpoint": "split_midpoint_kernel",
-           "interp_bary": "interp_bary_kernel"}
+# what the profiler's name of each kernel's device function holds: the
+# two tile-loop kernels share `tile_kernel` and differ by their epilogue
+# type (csrc/quality_vol.cu, csrc/collapse_cavity.cu)
+SYMBOLS = {"quality_vol": ("tile_kernel", "QualityVolOut"),
+           "collapse_cavity": ("tile_kernel", "GatedOut"),
+           "split_midpoint": ("split_midpoint_kernel",),
+           "interp_bary": ("interp_bary_kernel",)}
 
 
 def row_scales(vert, met, tet):
@@ -408,7 +425,7 @@ def launch_floor(rows: int, shards: int):
     stream = torch.cuda.current_stream().cuda_stream
     return time_ms(lambda: build.check(fn(rows, shards, stream),
                                        "launch_floor"),
-                   symbol="launch_floor_kernel")[0]
+                   symbol=("launch_floor_kernel",))[0]
 
 
 def floors(name: str, dtn: str, C: int, N: int, r: dict) -> str:
@@ -800,17 +817,21 @@ def profile_main_path(n: int, hsiz: float, cli_out) -> None:
 
 def _device_profile(prof, wall: float, label: str) -> None:
     """Print the device busy share of `wall` and the top device kernels
-    of a torch.profiler capture."""
+    of a torch.profiler capture. Reads the profiler's raw records: its
+    `events()` builds an object tree over them, which took ~5 minutes
+    for the 1.47 million records of the distributed rerun on an H100's
+    host."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        k = _short(e.name)
-        us, cnt = by_name.get(k, (0.0, 0))
-        by_name[k] = (us + e.time_range.elapsed_us(), cnt + 1)
+        us = e.duration_ns() / 1e3
+        spans.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + us))
+        k = _short(e.name())
+        t, cnt = by_name.get(k, (0.0, 0))
+        by_name[k] = (t + us, cnt + 1)
     busy, end = 0.0, -math.inf
     for lo, hi in sorted(spans):
         if hi > end:
@@ -1241,6 +1262,211 @@ def profile_distributed_path(n: int, cli_out) -> None:
                     f"{b['cells']} cells, {b['wall_s']} s)"
                     for b in info["balance"]))
     _device_profile(prof, wall, "adapt_distributed under torch.profiler")
+
+
+# phase 2g: the library API. The n=12 rung through `ParMesh`, loaded and
+# staged, the shim driven by a C program of its own process, and
+# ParMesh(nparts=4) on the graded cube for one iteration
+API_WALL_S = 300
+
+
+def capi_program(work: str) -> str:
+    """Build `parmmg_tpu_torch/native/capi_example.c` against the port's
+    C ABI shim (built first, at first use) with gcc. Returns the
+    program's path."""
+    from parmmg_tpu_torch import native
+
+    exe = os.path.join(work, "capi_example")
+    subprocess.run(["gcc", "-O2", "-o", exe,
+                    os.path.join(native.NATIVE_DIR, "capi_example.c"),
+                    native.capi_library()],
+                   check=True, timeout=120)
+    return exe
+
+
+def check_result(m, what: str, ne_range=None):
+    """Conforming, qmin > 0 and, given `ne_range`, ne inside it. Returns
+    (ne, qmin)."""
+    from parmmg_tpu_torch.ops import quality
+    from parmmg_tpu_torch.utils import conformity
+
+    rep = conformity.check_mesh(m)
+    require(rep.ok, f"{what}: not conforming: {rep}")
+    h = quality.quality_histogram(m)
+    ne, qmin = int(h.ne), float(h.qmin)
+    require(qmin > 0, f"{what}: qmin {qmin} <= 0")
+    if ne_range is not None:
+        require(ne_range[0] <= ne <= ne_range[1],
+                f"{what}: ne {ne} outside {ne_range}")
+    return ne, qmin
+
+
+def api_path(n: int, hsiz: float, cli_mesh, cli_launches) -> None:
+    """Phase 2g: the library API on the card (module docstring), each
+    run with the launch counters set to 0 just before and read just
+    after."""
+    import numpy as np
+    import torch
+
+    from parmmg_tpu_torch import api, kernels
+    from parmmg_tpu_torch.core.mesh import LEAVES, Mesh
+    from parmmg_tpu_torch.io import medit
+    from parmmg_tpu_torch.utils import gen
+
+    P, ok = api.Param, api.ReturnStatus.SUCCESS
+
+    def rung(pm):
+        pm.set_dparameter(P.DPARAM_hsiz, hsiz)
+        pm.set_iparameter(P.IPARAM_niter, 1)
+        pm.set_dparameter(P.DPARAM_hgrad, 0)
+        return pm
+
+    def run(pm, what):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        status = pm.parmmglib_centralized()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(status == ok, f"{what}: status {status!r} {pm.info}")
+        launches = dict(kernels.LAUNCHES)
+        print(f"## api {what}: SUCCESS in {wall:.3f} s, launches "
+              f"{launches}", flush=True)
+        return launches
+
+    raw = gen.unit_cube(n)
+    with tempfile.TemporaryDirectory(prefix="pmt_smoke_") as work:
+        cube = os.path.join(work, f"cube{n}.mesh")
+        medit.save_mesh(Mesh.from_numpy(raw["verts"], raw["tets"],
+                                        trias=raw["trias"],
+                                        trrefs=raw["trrefs"], device="cpu"),
+                        cube)
+        # the rung's input file, loaded
+        pm = rung(api.ParMesh())
+        pm.load_mesh(cube)
+        loaded = pm.mesh.to_numpy_state()
+        launches = run(pm, "ParMesh.load_mesh")
+        require(launches == cli_launches, f"ParMesh.load_mesh launches "
+                f"{launches}, the CLI's {cli_launches}")
+        require_same_mesh(pm.mesh, cli_mesh, "ParMesh.load_mesh: the mesh "
+                          "differs from the CLI's")
+        print(f"## api ParMesh.load_mesh: the CLI's mesh "
+              f"({int(cli_mesh.ntet)} tets) bit for bit and its launches")
+
+        # the rung's arrays, staged
+        pm_s = rung(api.ParMesh())
+        pm_s.set_vertices(raw["verts"])
+        pm_s.set_tetrahedra(raw["tets"])
+        pm_s.set_triangles(raw["trias"], raw["trrefs"])
+        staged = pm_s._build_mesh().to_numpy_state()
+        same_in = all(np.array_equal(staged[k], loaded[k]) for k in LEAVES)
+        launches_s = run(pm_s, "staged setters")
+        for name in CENTRAL:
+            require(launches_s[name] > 0, f"kernel {name} never launched "
+                    "on the staged ParMesh run")
+        ne, qmin = check_result(pm_s.mesh, "staged ParMesh", NE_RANGE)
+        if same_in:
+            require_same_mesh(pm_s.mesh, cli_mesh, "staged ParMesh: the "
+                              "staged input equals the loaded one, the "
+                              "output differs from the CLI's")
+        print(f"## api staged setters: ne {ne} qmin {qmin:.6f}; staged "
+              f"leaves {'equal' if same_in else 'differ from'} the CLI's "
+              "loaded ones" + (", so the CLI's mesh bit for bit" if same_in
+                               else ""))
+
+        # the same buffers through the shim, from a C program
+        verts = np.ascontiguousarray(raw["verts"], np.float64)
+        for name, a in (("verts.f64", verts),
+                        ("tets.i32", raw["tets"] + 1),
+                        ("trias.i32", raw["trias"] + 1),
+                        ("trrefs.i32", raw["trrefs"])):
+            np.ascontiguousarray(a, a.dtype if a.dtype == np.float64
+                                 else np.int32).tofile(
+                os.path.join(work, name))
+        t0 = time.perf_counter()
+        exe = capi_program(work)
+        t_build = time.perf_counter() - t0
+        out = os.path.join(work, "capi_out.mesh")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in sys.path if p))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [exe, work, str(len(verts)), str(len(raw["tets"])),
+             str(len(raw["trias"])), str(hsiz), "0", "1", cube, out],
+            env=env, capture_output=True, text=True, timeout=API_WALL_S)
+        print(r.stdout.strip())
+        require(r.returncode == 0, f"capi_example exited {r.returncode}: "
+                f"{r.stderr[-4000:]}")
+        print(f"## api C program: built in {t_build:.2f} s, ran in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def back(name, dt, cols=None):
+            a = np.fromfile(os.path.join(work, name), dt)
+            return a if cols is None else a.reshape(-1, cols)
+
+        sizes = back("out_sizes.i32", np.int32)
+        d = pm_s.mesh.to_numpy()
+        require(tuple(sizes) == (len(d["verts"]), len(d["tets"]),
+                                 len(d["trias"])),
+                f"C program sizes {tuple(sizes)}")
+        for name, dt, cols, want in (
+                ("out_verts.f64", np.float64, 3, d["verts"]),
+                ("out_vrefs.i32", np.int32, None, d["vrefs"]),
+                ("out_met.f64", np.float64, 1, d["met"]),
+                ("out_tets.i32", np.int32, 4, d["tets"] + 1),
+                ("out_trefs.i32", np.int32, None, d["trefs"]),
+                ("out_trias.i32", np.int32, 3, d["trias"] + 1),
+                ("out_trrefs.i32", np.int32, None, d["trrefs"])):
+            got = back(name, dt, cols)
+            require(got.shape == want.shape and bool(
+                (got == want.astype(dt)).all()),
+                f"C program {name} differs from the staged ParMesh's")
+        print("## api C program: the staged ParMesh's mesh bit for bit "
+              f"({int(sizes[1])} tets)")
+        ne, qmin = check_result(medit.load_mesh(out, device="cuda"),
+                                "pmmgtpu_adapt_file")
+        print(f"## api pmmgtpu_adapt_file: status 0, ne {ne} qmin "
+              f"{qmin:.6f}, conforming")
+
+        # four shards, one iteration, on the graded cube
+        cube_g, sol = write_graded_cube(work, n)
+        pm4 = api.ParMesh(nparts=NPARTS)
+        pm4.set_iparameter(P.IPARAM_niter, 1)
+        pm4.load_mesh(cube_g, sol)
+        launches4 = run(pm4, f"ParMesh(nparts={NPARTS})")
+        for name in kernels.NAMES:
+            require(launches4[name] > 0, f"kernel {name} never launched "
+                    f"on the ParMesh(nparts={NPARTS}) run")
+        ne, qmin = check_result(pm4.mesh, f"ParMesh(nparts={NPARTS})")
+        check_getters(pm4)
+        print(f"## api ParMesh(nparts={NPARTS}): ne {ne} qmin {qmin:.6g}, "
+              "conforming, getters consistent")
+
+
+def check_getters(pm) -> None:
+    """The distributed getters of a ParMesh's result, as
+    tests/test_m6_api_io.py:571 checks them: every live vertex numbered,
+    as many distinct ids as merged vertices; tria ids contiguous, as
+    many as merged trias; each interface vertex owned by the lowest
+    shard that holds it."""
+    import numpy as np
+
+    vg = np.concatenate(pm.get_vertex_glonum())
+    require((vg >= 0).all() and len(np.unique(vg))
+            == len(pm.get_vertices()[0]), "vertex global numbering")
+    tg = np.concatenate(pm.get_triangle_glonum())
+    real = tg[tg >= 0]
+    require(len(real) > 0 and real.max() == len(np.unique(real)) - 1
+            and len(np.unique(real)) == len(pm.get_triangles()[0]),
+            "triangle global numbering")
+    own = pm.get_node_communicator_owners()
+    holders = {}
+    for s, (rank, gid, nuni, ntot) in enumerate(own):
+        require(ntot >= nuni > 0, f"owner counts {nuni}, {ntot}")
+        for g in gid:
+            holders.setdefault(int(g), []).append(s)
+    for rank, gid, _, _ in own:
+        require(all(r == min(holders[int(g)]) for r, g in zip(rank, gid)),
+                "an interface vertex not owned by its lowest shard")
 
 
 def levelset_path(n: int, hsiz: float) -> None:
@@ -1786,6 +2012,10 @@ def main() -> int:
               expect=NOFRONTIER_MESH)
     levelset_path(CUBE_N, HSIZ)
     print(f"## phase 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    t2g = time.perf_counter()
+    api_path(CUBE_N, HSIZ, m, launches)
+    print(f"## phase 2g done at {time.perf_counter() - t0:.1f} s "
+          f"({time.perf_counter() - t2g:.1f} s)", flush=True)
     m_d, launches_d, shapes_d = distributed_path(CUBE_N, DIST_NE_RANGE)
     same_run(m_d, launches_d, "distributed path",
              *distributed_path(CUBE_N, DIST_NE_RANGE, fields=True)[:2])

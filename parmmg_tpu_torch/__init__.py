@@ -25,6 +25,9 @@ import torch
 
 __all__ = ["resolve_device"]
 
+# the JAX package's version this port follows, marked as the port's
+__version__ = "0.3.0+torch"
+
 # a run of several ranks (the mpirun -np analog): the world is joined
 # before anything else runs, and only when the contract is set
 import os as _os  # noqa: E402

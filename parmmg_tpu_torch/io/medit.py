@@ -1,7 +1,8 @@
 """Medit (.mesh/.sol, .meshb/.solb) I/O, centralized and distributed.
 
-Counterpart of the host parts of `parmmg_tpu/io/medit.py`: a pure-Python
-tokenizer for ASCII files, a GMF reader and writer for binary ones
+Counterpart of the host parts of `parmmg_tpu/io/medit.py`: the native
+tokenizer for ASCII files (`native_io`, built at first use) or, where it
+does not build, a pure-Python one, a GMF reader and writer for binary ones
 (versions 1-3 read in either byte order, version 2 written), section
 reshapes in numpy shared by both encodings, and write-then-rename
 publication. Per-shard files `name.<rank>.mesh` carry the parallel
@@ -80,8 +81,12 @@ _ENT_SECTIONS = {
 }
 
 def _tokenize(path: str) -> List[str]:
+    from . import native_io
+
     if not os.path.exists(path):
         raise FileNotFoundError(f"mesh file not found: {path}")
+    if native_io.available():
+        return native_io.tokenize(path)
     with open(path) as f:
         text = f.read()
     return _COMMENT_RE.sub(" ", text).split()

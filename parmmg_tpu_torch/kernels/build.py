@@ -21,6 +21,7 @@ one; a call on an empty stream launches nothing and adds one to
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -122,16 +123,23 @@ def _run(procs: dict) -> None:
     BUILD_LOGS.update(logs)
 
 
-def _build(out: str) -> None:
-    """Build the library `out` under an exclusive lock on `_build/.lock`,
-    so that processes starting together on a cold `_build/` (the ranks
-    of one run) compile it once: the first to take the lock builds, the
-    others find the library when they get the lock. Objects and library
-    are written under names of this process and renamed into place, so
-    no process ever loads a half-written file."""
+@contextlib.contextmanager
+def build_lock():
+    """An exclusive lock on `_build/.lock`, held while a library is
+    built, so that processes starting together on a cold `_build/` (the
+    ranks of one run) build it once: the first to take the lock builds,
+    the others find the library when they get the lock."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, ".lock"), "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
+def _build(out: str) -> None:
+    """Build the library `out` under `build_lock()`. Objects and library
+    are written under names of this process and renamed into place, so
+    no process ever loads a half-written file."""
+    with build_lock():
         if os.path.exists(out):
             return
         nvcc = nvcc_path()

@@ -19,8 +19,9 @@ has them re-interpolated once from the input (`interp_fields_only`)
 after the final polish and compaction.
 
 Not ported, refused with `NotImplementedError` naming the ROADMAP item
-that brings them: checkpointing, fault injection, the run governor and
-kernel-mode switching.
+that brings them: checkpointing and the failsafe layer's other options
+(validation cadence, recovery attempts, watchdog), fault injection, the
+run governor and kernel-mode switching.
 """
 
 from __future__ import annotations
@@ -120,21 +121,39 @@ class AdaptOptions:
     # (CLI -balance); None = PMMGTPU_BALANCE_BAND, else 1.5; <= 0 turns
     # the policy off (-nobalance turns off all resharding)
     balance_band: Optional[float] = None
-    # refused (ROADMAP queue 1, item 15 — host-side layers)
+    # refused (ROADMAP queue 1, item 15 — host-side layers): the first
+    # four when set, the others when set away from their defaults
     checkpoint_dir: Optional[str] = None
     checkpoint_store: Optional[object] = None
     faults: Optional[object] = None
     govern: Optional[bool] = None
+    validate_every: int = 1
+    recovery_attempts: int = 2
+    checkpoint_every: int = 1
+    checkpoint_async: bool = False
+    checkpoint_keep: int = 2
+    watchdog_timeout: Optional[float] = None
     # refused: the port has no kernel-mode switch
     kernels: Optional[str] = None
     verbose: int = 0
 
 
+# the options of ROADMAP item 15: refused when set, or when set away from
+# their defaults
+_ITEM15_SET = ("checkpoint_dir", "checkpoint_store", "faults", "govern")
+_ITEM15_DEFAULTED = ("validate_every", "recovery_attempts",
+                     "checkpoint_every", "checkpoint_async",
+                     "checkpoint_keep", "watchdog_timeout")
+
+
 def check_supported(opts: AdaptOptions) -> None:
     """Raise `NotImplementedError` for every option this slice of the
     port does not carry."""
-    for name in ("checkpoint_dir", "checkpoint_store", "faults", "govern"):
-        if getattr(opts, name) not in (None, False):
+    default = {f.name: f.default for f in dataclasses.fields(AdaptOptions)}
+    for name in _ITEM15_SET + _ITEM15_DEFAULTED:
+        value = getattr(opts, name)
+        if (value not in (None, False) if name in _ITEM15_SET
+                else value != default[name]):
             raise NotImplementedError(
                 f"AdaptOptions.{name} is not ported yet: ROADMAP queue 1, "
                 "item 15 (failsafe/checkpoint, fault plan, governor) "

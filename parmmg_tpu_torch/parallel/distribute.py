@@ -3,10 +3,11 @@ shards, derive the node communicator tables, number new vertices, and
 merge the shards back into one mesh.
 
 Counterpart of `parmmg_tpu/parallel/distribute.py` (`ShardComm`,
-`split_mesh`, `rebuild_comm`, `assign_global_ids`, `merge_shards`,
-`stack_loaded_shards`). `split_mesh`, `merge_shards` and the decisions
+`split_mesh`, `rebuild_comm`, `assign_global_ids`,
+`assign_triangle_gids`, `merge_shards`, `stack_loaded_shards`).
+`split_mesh`, `merge_shards`, the triangle numbering and the decisions
 of `stack_loaded_shards` are host numpy, as there; the table rebuild and
-the numbering run on the mesh's device.
+the vertex numbering run on the mesh's device.
 
 A stacked mesh is a `Mesh` whose leaves carry a leading shard axis
 [D, cap, ...] with uniform capacities across shards. `stack_meshes` and
@@ -311,6 +312,29 @@ def assign_global_ids(stacked: Mesh) -> Mesh:
     rank = torch.cumsum(new.to(torch.int64), dim=1) - 1
     newid = (offs[:, None] + rank).to(torch.int32)
     return stacked.replace(vglob=torch.where(new, newid, vglob))
+
+
+def assign_triangle_gids(stacked: Mesh) -> np.ndarray:
+    """[D, FC] int64 global triangle ids of the true-surface trias; -1 on
+    dead slots and on the synthetic interface trias (PARBDY|NOSURF).
+
+    A PARBDYBDY tria replicated on both sides of an interface gets one
+    id; ids are contiguous from 0 in the sorted order of the trias'
+    vertex global id triples (host numpy, a sort-merge)."""
+    tria, trmask = _np(stacked.tria), _np(stacked.trmask)
+    trtag, vglob = _np(stacked.trtag), _np(stacked.vglob)
+    D, FC = trmask.shape
+    out = np.full((D, FC), -1, np.int64)
+    real = trmask & ~tags.pure_interface_tria(trtag)
+    s_i, f_i = np.nonzero(real)
+    if not len(s_i):
+        return out
+    g3 = np.sort(vglob[s_i[:, None], tria[s_i, f_i]], axis=1).astype(np.int64)
+    order = np.lexsort((g3[:, 2], g3[:, 1], g3[:, 0]))
+    gs = g3[order]
+    newkey = np.concatenate([[True], np.any(gs[1:] != gs[:-1], axis=1)])
+    out[s_i[order], f_i[order]] = np.cumsum(newkey) - 1
+    return out
 
 
 def stack_loaded_shards(raws, dtype=None,

@@ -23,16 +23,30 @@ coordinates, metric, ls and fields within 5e-11;
 `save_fields`, `save_vtu` and `save_pvtu` write JAX's bytes for that
 adapted mesh, and `load_vtu` reads JAX's file into JAX's arrays. The
 CLI's `-field`, `-ls` and `.vtu` paths write what the API gives.
+
+The library API: the `ParMesh` flows of tests/test_m6_api_io.py:19
+(manual setters on the cube n=3, metric 0.25, hgrad 1.3, niter 1) and
+:50 (cube n=2, a corner, a required vertex, metric 0.6) through both
+packages' `api` on the same calls (`api_flow`, `api_record`; held in
+tests/test_torch_distributed.py, whose `graded` child runs JAX's side at
+XLA's optimisation level 0). The C ABI shim (`native/parmmg_capi.c` of
+the port), built here with gcc and loaded with ctypes, gives the port's
+`ParMesh` results bit for bit, and the native tokenizer the Python
+one's tokens (`test_rules_of_the_port`).
 """
 
 import ast
+import ctypes
+import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from parmmg_tpu_torch import __main__ as t_cli
+from parmmg_tpu_torch import api as t_api
 from parmmg_tpu_torch.core import mesh as t_mesh
 from parmmg_tpu_torch.core import tags
 from parmmg_tpu_torch.io import medit as t_medit
@@ -148,6 +162,79 @@ def jax_ls_fields(tmp) -> dict:
     return out
 
 
+# the ParMesh flows of tests/test_m6_api_io.py:19 (manual) and :50
+# (required), the same calls on either package's `api`
+API_FLOWS = ("manual", "required")
+API_PAIRS = ("get_vertices", "get_tetrahedra", "get_triangles",
+             "get_edges")
+F32_RTOL = 5e-6
+
+
+def api_flow(api, unit_cube, flow: str, **kw):
+    """A staged `api.ParMesh` of one flow, not run yet."""
+    P = api.Param
+    raw = unit_cube(3 if flow == "manual" else 2)
+    nv = len(raw["verts"])
+    pm = api.ParMesh(**kw)
+    if flow == "manual":
+        pm.set_mesh_size(np_=nv, ne=len(raw["tets"]), nt=len(raw["trias"]))
+    pm.set_vertices(raw["verts"])
+    pm.set_tetrahedra(raw["tets"])
+    pm.set_triangles(raw["trias"], raw["trrefs"])
+    if flow == "manual":
+        pm.set_metric_sols(np.full(nv, 0.25))
+        pm.set_dparameter(P.DPARAM_hgrad, 1.3)
+    else:
+        pm.set_corner(0)
+        pm.set_required_vertex(13)  # the centre vertex of the n=2 cube
+        pm.set_metric_sols(np.full(nv, 0.6))
+    pm.set_iparameter(P.IPARAM_niter, 1)
+    return pm
+
+
+def api_record(out: dict, key: str, api, pm) -> None:
+    """Record the staged ParMesh `pm` of `api` under `key`: its built
+    mesh and option values, then run it: status, sizes, parameters read
+    back, every getter and the numberings."""
+    put_mesh(out, f"{key}/built", pm._build_mesh())
+    out[f"{key}/opts"] = np.asarray(repr(sorted(
+        (f.name, getattr(pm.opts, f.name))
+        for f in dataclasses.fields(pm.opts))))
+    out[f"{key}/status"] = np.asarray(int(pm.parmmglib_centralized()))
+    out[f"{key}/size"] = np.asarray(pm.get_mesh_size())
+    out[f"{key}/params"] = np.asarray(
+        [pm.get_iparameter(api.Param.IPARAM_niter),
+         pm.get_dparameter(api.Param.DPARAM_hgrad)])
+    for g in API_PAIRS:
+        out[f"{key}/{g}/0"], out[f"{key}/{g}/1"] = getattr(pm, g)()
+    out[f"{key}/met"] = pm.get_metric_sols()
+    out[f"{key}/vglo"] = np.asarray(pm.get_vertex_glonum())
+    out[f"{key}/tglo"] = np.asarray(pm.get_triangle_glonum())
+
+
+def jax_api() -> dict:
+    """The JAX side of the API flows (in a child process at XLA's
+    optimisation level 0: tests/test_torch_distributed.py runs it with
+    its `graded` case, whose child has room for it)."""
+    from parmmg_tpu import api
+    from parmmg_tpu.utils import gen as j_gen
+
+    out = {}
+    for flow in API_FLOWS:
+        api_record(out, f"api_{flow}", api,
+                   api_flow(api, j_gen.unit_cube, flow))
+    return out
+
+
+def torch_api() -> dict:
+    """The port's side of the API flows, on the CPU."""
+    out = {}
+    for flow in API_FLOWS:
+        api_record(out, f"api_{flow}", t_api,
+                   api_flow(t_api, t_gen.unit_cube, flow, device="cpu"))
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(JAX run, port run) of the case, and the JAX side of the fields,
@@ -248,6 +335,42 @@ def test_adaptation_equals_live_jax(runs, tmp_path):
     _check_files(jls, tmp_path)
 
 
+def check_api(r, got):
+    """The port's ParMesh flows (`torch_api`) against JAX's (`jax_api`):
+    the staged mesh (f32, as `Mesh.from_numpy` defaults in both) and the
+    mapped options exactly; after the run, status, sizes, parameters,
+    every getter and the numberings with integers equal (the tets as a
+    set of rows) and floats within the f32 `_rtol` of
+    tests/test_m18_kernels.py (5e-6); the manual flow refined its
+    input, the required vertex stayed."""
+    for flow in API_FLOWS:
+        key = f"api_{flow}"
+        assert sorted(k for k in got if k.startswith(key + "/")) == \
+            sorted(k for k in r if k.startswith(key + "/")), flow
+        # the tets as a set: the reference's jitted swap_23 orders its
+        # new tets otherwise than its op-by-op run (ROADMAP queue 3)
+        tets = [np.concatenate([x[f"{key}/get_tetrahedra/0"],
+                                x[f"{key}/get_tetrahedra/1"][:, None]], 1)
+                for x in (got, r)]
+        np.testing.assert_array_equal(
+            *(t[np.lexsort(t.T[::-1])] for t in tets), err_msg=key)
+        for k in (k for k in got if k.startswith(key + "/")):
+            if "/get_tetrahedra/" in k:
+                continue
+            a, b = r[k], got[k]
+            assert a.shape == b.shape and a.dtype == b.dtype, (k, a, b)
+            if a.dtype.kind == "f" and "/built/" not in k:
+                np.testing.assert_allclose(b, a, rtol=F32_RTOL,
+                                           atol=F32_RTOL, err_msg=k)
+            else:
+                np.testing.assert_array_equal(b, a, err_msg=k)
+        assert int(got[f"{key}/status"]) == 0
+    np.testing.assert_array_equal(got["api_manual/params"], [1, 1.3])
+    # the manual flow refined its input; the required centre vertex of
+    # the other stays where it was
+    assert got["api_manual/size"][1] > got["api_manual/built/tmask"].sum()
+    centre = got["api_required/built/vert"][13]
+    assert (got["api_required/get_vertices/0"] == centre).all(1).any()
 def _check_levelset(r):
     """`discretize_levelset` bit for bit on every case (the snapped
     case has vertices within the snapping tolerance); every case splits
@@ -437,6 +560,11 @@ def _assert_no_jax_imports():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "parmmg_tpu"), (f, mod)
+    # the C shim imports the port's modules only
+    shim = (ROOT / "parmmg_tpu_torch/native/parmmg_capi.c").read_text()
+    mods = re.findall(r'"(parmmg_tpu[\w.]*)"', shim)
+    assert mods and all(m.startswith("parmmg_tpu_torch.") for m in mods)
+    assert "jax" not in shim
 
 
 def _assert_no_device_and_no_cuda_raises(monkeypatch, tmp_path):
@@ -450,6 +578,8 @@ def _assert_no_device_and_no_cuda_raises(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_gen.unit_cube_mesh(2)
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_api.ParMesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             t_cli.main([src, "-hsiz", "0.5", "-niter", "1", "-v", "0"])
 
 
@@ -457,6 +587,9 @@ UNPORTED_OPTIONS = [
     ("checkpoint_dir", "ck"),
     ("checkpoint_store", "mem://b"), ("faults", "it0:remesh:nan"),
     ("govern", True), ("kernels", "off"), ("validate", "full"),
+    ("validate_every", 2), ("recovery_attempts", 0),
+    ("checkpoint_every", 2), ("checkpoint_async", True),
+    ("checkpoint_keep", 3), ("watchdog_timeout", 30.0),
 ]
 
 UNPORTED_FLAGS = [
@@ -482,6 +615,8 @@ def _assert_unported_refused(tmp_path):
         opts = t_adapt.AdaptOptions(niter=1, **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_adapt.adapt(m, opts, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        t_api.ParMesh(device="cpu").set_checkpoint("ck")
     # a mesh carrying a field adapts, and the field follows the vertices
     raw = t_gen.unit_cube(2)
     mf = t_mesh.Mesh.from_numpy(raw["verts"], raw["tets"],
@@ -538,11 +673,134 @@ def _assert_validation_rolls_back(monkeypatch):
     assert int(out.ntet) == 48 and torch.isfinite(out.vert).all()
 
 
-def test_rules_of_the_port(monkeypatch, tmp_path):
-    """No JAX in the port; no silent CPU fallback; every unported option
-    and flag refused naming its ROADMAP item, the ported distributed
-    flags run; `basic` validation rolls a failed iteration back."""
+def _assert_native_tokenizer(cube_mesh_path, tmp_path):
+    """The native Medit tokenizer builds here (g++) and gives the Python
+    tokenizer's tokens on the cube fixture and on a file with comments;
+    `load_mesh` reads through it."""
+    from parmmg_tpu_torch.io import native_io
+
+    assert native_io.available()
+    commented = tmp_path / "commented.mesh"
+    commented.write_text("# head\nMeshVersionFormatted 2 #x\r\n"
+                         "Dimension\t3\n\nVertices 0 End")
+    for path in (cube_mesh_path, str(commented)):
+        with open(path) as f:
+            py = re.compile(r"#.*").sub(" ", f.read()).split()
+        assert native_io.tokenize(path) == py
+    assert t_medit._tokenize(str(commented)) == native_io.tokenize(
+        str(commented))
+
+
+def _shim(monkeypatch):
+    """The port's C ABI shim, built here with gcc and loaded into this
+    process with ctypes, its handles on the CPU (`capi_support.device`,
+    set from Python)."""
+    from parmmg_tpu_torch import capi_support, native
+
+    monkeypatch.setattr(capi_support, "device", "cpu")
+    lib = ctypes.CDLL(native.capi_library())
+    C = ctypes
+    dp, ip, vp = C.POINTER(C.c_double), C.POINTER(C.c_int), C.c_void_p
+    sigs = dict(
+        init=([C.c_int], vp), free=([vp], C.c_int),
+        set_vertices=([vp, dp, ip, C.c_int], C.c_int),
+        set_tetrahedra=([vp, ip, ip, C.c_int], C.c_int),
+        set_triangles=([vp, ip, ip, C.c_int], C.c_int),
+        set_metric=([vp, dp, C.c_int, C.c_int], C.c_int),
+        set_iparameter=([vp, C.c_int, C.c_int], C.c_int),
+        set_dparameter=([vp, C.c_int, C.c_double], C.c_int),
+        run=([vp], C.c_int), get_meshsize=([vp, ip, ip, ip], C.c_int),
+        get_vertices=([vp, dp, ip, C.c_int], C.c_int),
+        get_tetrahedra=([vp, ip, ip, C.c_int], C.c_int),
+        get_triangles=([vp, ip, ip, C.c_int], C.c_int),
+        get_metric=([vp, dp, C.c_int, C.c_int], C.c_int),
+        adapt_file=([C.c_char_p, C.c_char_p, C.c_char_p, C.c_double,
+                     C.c_int, C.c_int], C.c_int),
+        version=([], C.c_char_p))
+    for name, (args, res) in sigs.items():
+        fn = getattr(lib, f"pmmgtpu_{name}")
+        fn.argtypes, fn.restype = args, res
+    return lib
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(
+        ctypes.c_double if a.dtype == np.float64 else ctypes.c_int))
+
+
+def _assert_shim_equals_parmesh(monkeypatch, tmp_path):
+    """The staged-arrays flow of tests/test_native_io.py:45 through the
+    shim (1-based) gives the port's `ParMesh` results for the same calls
+    bit for bit; `pmmgtpu_adapt_file` writes the bytes `api.adapt_file`
+    writes; `pmmgtpu_version` names the port."""
+    lib = _shim(monkeypatch)
+    P = t_api.Param
+    raw = t_gen.unit_cube(3)
+    verts = np.ascontiguousarray(raw["verts"], np.float64)
+    trrefs = np.ascontiguousarray(raw["trrefs"], np.int32)
+    met = np.full((len(verts), 1), 0.25)
+    h = ctypes.c_void_p(lib.pmmgtpu_init(1))
+    assert h.value
+    for rc in (
+            lib.pmmgtpu_set_vertices(h, _ptr(verts), None, len(verts)),
+            lib.pmmgtpu_set_tetrahedra(
+                h, _ptr(np.ascontiguousarray(raw["tets"] + 1, np.int32)),
+                None, len(raw["tets"])),
+            lib.pmmgtpu_set_triangles(
+                h, _ptr(np.ascontiguousarray(raw["trias"] + 1, np.int32)),
+                _ptr(trrefs), len(trrefs)),
+            lib.pmmgtpu_set_metric(h, _ptr(met), len(verts), 1),
+            lib.pmmgtpu_set_iparameter(h, int(P.IPARAM_niter), 1),
+            lib.pmmgtpu_set_dparameter(h, int(P.DPARAM_hsiz), 0.25),
+            lib.pmmgtpu_run(h)):
+        assert rc == 0
+    pm = t_api.ParMesh(device="cpu")
+    pm.set_vertices(verts)
+    pm.set_tetrahedra(raw["tets"])
+    pm.set_triangles(raw["trias"], trrefs)
+    pm.set_metric_sols(met)
+    pm.set_iparameter(P.IPARAM_niter, 1)
+    pm.set_dparameter(P.DPARAM_hsiz, 0.25)
+    assert pm.parmmglib_centralized() == 0
+    n = [ctypes.c_int() for _ in range(3)]
+    assert lib.pmmgtpu_get_meshsize(h, *map(ctypes.byref, n)) == 0
+    npo, ne, nt = (x.value for x in n)
+    assert (npo, ne, nt) == pm.get_mesh_size()[:3] and ne > len(raw["tets"])
+    want = dict(vertices=pm.get_vertices(), tetrahedra=pm.get_tetrahedra(),
+                triangles=pm.get_triangles())
+    for what, cnt, cols, dt in (("vertices", npo, 3, np.float64),
+                                ("tetrahedra", ne, 4, np.int32),
+                                ("triangles", nt, 3, np.int32)):
+        a, refs = np.empty((cnt, cols), dt), np.empty(cnt, np.int32)
+        assert getattr(lib, f"pmmgtpu_get_{what}")(
+            h, _ptr(a), _ptr(refs), cnt) == 0
+        base = 0 if what == "vertices" else 1  # 1-based connectivity
+        np.testing.assert_array_equal(a, want[what][0] + base, what)
+        np.testing.assert_array_equal(refs, want[what][1], what)
+    m_out = np.empty((npo, 1))
+    assert lib.pmmgtpu_get_metric(h, _ptr(m_out), npo, 1) == 0
+    np.testing.assert_array_equal(m_out, pm.get_metric_sols())
+    assert lib.pmmgtpu_free(h) == 0
+
+    src, out = str(tmp_path / "shim_in.mesh"), tmp_path / "shim_out.mesh"
+    t_medit.save_mesh(t_gen.unit_cube_mesh(2, device="cpu"), src)
+    assert lib.pmmgtpu_adapt_file(src.encode(), b"", str(out).encode(),
+                                  0.4, 1, 1) == 0
+    assert t_api.adapt_file(src, "", str(tmp_path / "api_out.mesh"), 0.4,
+                            1, 1, device="cpu") == 0
+    assert out.read_bytes() == (tmp_path / "api_out.mesh").read_bytes()
+    assert lib.pmmgtpu_version().decode().startswith("parmmg_tpu_torch ")
+
+
+def test_rules_of_the_port(monkeypatch, tmp_path, cube_mesh_path):
+    """No JAX in the port (nor in its C shim); no silent CPU fallback;
+    every unported option and flag refused naming its ROADMAP item, the
+    ported distributed flags run; `basic` validation rolls a failed
+    iteration back; the native tokenizer and the C ABI shim build here
+    and agree with the Python tokenizer and the port's `ParMesh`."""
     _assert_no_jax_imports()
     _assert_no_device_and_no_cuda_raises(monkeypatch, tmp_path)
     _assert_unported_refused(tmp_path)
     _assert_validation_rolls_back(monkeypatch)
+    _assert_native_tokenizer(cube_mesh_path, tmp_path)
+    _assert_shim_equals_parmesh(monkeypatch, tmp_path)

@@ -37,7 +37,16 @@ numpy arrays.
   and op-by-op runs order them differently, see `_assert_leaves`);
   qmin/qavg within 5e-11 relative. Both graded cases carry a `(1, 3)`
   linear field, compared with JAX's (stacked and merged, within 5e-11).
-- The distributed workflow: `adapt_stacked_input` with the
+- The library API (`api.ParMesh`): the centralized flows of
+  tests/test_torch_adapt.py `api_flow` (the calls of
+  tests/test_m6_api_io.py:19 and :50) against JAX's (`check_api`: staged
+  f32 mesh and options exact, then integers equal and floats within
+  5e-6), JAX's side in the `graded` child; the distributed getters (`api.ParMesh`:
+  `get_vertex_glonum`, `get_triangle_glonum` with
+  `distribute.assign_triangle_gids`, `get_node_communicator_owners`) on
+  the balanced result equal JAX's on its own, exactly.
+- The distributed workflow: `adapt_stacked_input`, called through
+  `ParMesh.parmmglib_distributed`, with the
   communicator checks (balanced, frontier sweeps) on binary per-rank
   files of the graded mesh's 4-shard split, carrying the same field
   once loaded, against the live JAX run (the `input` case, compared as
@@ -61,6 +70,7 @@ import pytest
 import torch
 
 from parmmg_tpu_torch import __main__ as t_cli
+from parmmg_tpu_torch import api as t_api
 from parmmg_tpu_torch import kernels as t_kernels
 from parmmg_tpu_torch.core import adjacency as t_adj
 from parmmg_tpu_torch.core.mesh import LEAVES, Mesh
@@ -72,6 +82,7 @@ from parmmg_tpu_torch.parallel import distribute as t_distr
 from parmmg_tpu_torch.parallel import migrate as t_mig
 from parmmg_tpu_torch.parallel import partition as t_part
 from parmmg_tpu_torch.utils import conformity, gen as t_gen
+from test_torch_adapt import check_api, torch_api
 from test_torch_ops import one_torch_thread, start_jax_side  # noqa: F401
 
 RTOL = 5e-11
@@ -489,7 +500,27 @@ def _jax_adapt(out, case):
         _put(out, key, info[key], HISTO_INT + ("qmin", "qavg"))
     _put(out, "len", info["len_out"], ("counts", "n_unit", "nedge"))
     _put(out, "stacked", st, LEAVES)
-    _put(out, "merged", merge_adapted(st, comm), LEAVES)
+    merged = merge_adapted(st, comm)
+    _put(out, "merged", merged, LEAVES)
+    if case == "balanced":
+        from parmmg_tpu.api import ParMesh
+
+        pm = ParMesh(nparts=4)
+        pm.stacked, pm.comm, pm.mesh = st, comm, merged
+        _api_getters(out, pm)
+
+
+def _api_getters(out: dict, pm) -> None:
+    """The distributed getters of a ParMesh holding a stacked result
+    (host numpy in both packages): per shard, the vertex and triangle
+    global numbers and the node-communicator owners."""
+    own = pm.get_node_communicator_owners()
+    for s, (vg, tg, (rank, gid, nuni, ntot)) in enumerate(zip(
+            pm.get_vertex_glonum(), pm.get_triangle_glonum(), own)):
+        out[f"api/vglo{s}"], out[f"api/tglo{s}"] = vg, tg
+        out[f"api/own{s}"] = np.stack([rank, gid])
+        out[f"api/own_n{s}"] = np.asarray([nuni, ntot])
+    out["api/nshard"] = np.asarray(len(own))
 
 
 def jax_dist(*parts) -> dict:
@@ -498,6 +529,10 @@ def jax_dist(*parts) -> dict:
         got = {}
         if part == "distribute":
             _jax_distribute(got)
+        elif part == "api":
+            from test_torch_adapt import jax_api
+
+            got = jax_api()
         else:
             _jax_adapt(got, part)
         out.update({f"{part}:{k}": v for k, v in got.items()})
@@ -507,8 +542,11 @@ def jax_dist(*parts) -> dict:
 # the JAX side's child processes, one a group, run side by side: the
 # input run, whose shards have the balanced run's shapes, follows the
 # balanced one in its process (the compiled programs are reused); the
-# I/O checks run with the distribute part
-GROUPS = (("hsiz",), ("graded",), ("balanced", "input"), ("distribute",))
+# I/O checks run with the distribute part; the library API's flows
+# (tests/test_torch_adapt.py `jax_api`, ~60 s of f32 compiles) with the
+# graded case, whose child ends well before the balanced one's
+GROUPS = (("hsiz",), ("graded", "api"), ("balanced", "input"),
+          ("distribute",))
 
 
 @pytest.fixture(scope="module")
@@ -743,6 +781,7 @@ def torch_runs(ref, tmp_path_factory):
             runs[case] = t_dist.adapt_distributed(
                 _case_mesh(case), t_dist.DistOptions(**_case_options(case)),
                 device="cpu")
+        runs["api"] = torch_api()
     finally:
         torch.use_deterministic_algorithms(prev)
         runs["ranks"] = ranks()
@@ -754,13 +793,53 @@ def test_adapt_distributed_equals_live_jax(ref, torch_runs):
     balanced) against the live JAX runs; the distributed workflow on
     the graded mesh's split (`_check_input`): the `input` case, balanced
     from per-rank binary files with the communicator checks, against the
-    live JAX run; and the balanced case run by two ranks
-    (`_check_ranks`)."""
+    live JAX run; the balanced case run by two ranks (`_check_ranks`);
+    and the library API: the centralized `ParMesh` flows
+    (`check_api`) and the distributed getters on the balanced result
+    (`_check_getters`)."""
     for case in CASES[:-1]:
         _check_case(ref(case), torch_runs[case], case)
+    _check_getters(ref("balanced"), torch_runs["balanced"])
+    check_api(ref("api"), torch_runs["api"])
     _check_input(ref("input"), *torch_runs["input"])
     _check_ranks(ref("balanced"), torch_runs["balanced"],
                  torch_runs["ranks"])
+
+
+def _check_getters(r, run):
+    """The port's `ParMesh` getters on the balanced result equal JAX's on
+    its own result exactly, with the checks of
+    tests/test_m6_api_io.py:571: every live vertex numbered, as many
+    distinct ids as merged vertices; tria ids contiguous, as many as
+    merged trias; each interface vertex owned by the lowest shard that
+    holds it."""
+    st, comm, _ = run
+    pm = t_api.ParMesh(nparts=4, device="cpu")
+    pm.stacked, pm.comm, pm.mesh = st, comm, t_dist.merge_adapted(st, comm)
+    got = {}
+    _api_getters(got, pm)
+    assert sorted(got) == sorted(k for k in r if k.startswith("api/"))
+    for k, v in got.items():
+        assert v.dtype == r[k].dtype, k
+        np.testing.assert_array_equal(v, r[k], err_msg=k)
+    D = int(got["api/nshard"])
+    vg = np.concatenate([got[f"api/vglo{s}"] for s in range(D)])
+    assert (vg >= 0).all()
+    assert len(np.unique(vg)) == len(pm.get_vertices()[0])
+    tg = np.concatenate([got[f"api/tglo{s}"] for s in range(D)])
+    real = tg[tg >= 0]
+    assert len(real) and real.max() == len(np.unique(real)) - 1
+    assert len(np.unique(real)) == len(pm.get_triangles()[0])
+    holders = {}
+    for s in range(D):
+        nuni, ntot = got[f"api/own_n{s}"]
+        assert ntot >= nuni > 0
+        for g in got[f"api/own{s}"][1]:
+            holders.setdefault(int(g), []).append(s)
+    for s in range(D):
+        rank, gid = got[f"api/own{s}"]
+        assert all(rk == min(holders[int(g)]) for rk, g in zip(rank, gid))
+    assert all(len(h) > 1 for h in holders.values())
 
 
 def _check_ranks(r, one, ranks):
@@ -874,8 +953,10 @@ def _loaded_input(tmp):
 
 
 def _input_run(tmp):
-    """The port's `input` case: `adapt_stacked_input` on the loaded
-    per-rank files, with every `assert_comm_ok` report it makes.
+    """The port's `input` case: `ParMesh.parmmglib_distributed`
+    (`adapt_stacked_input`) on the loaded per-rank files, the options
+    set through the Param setters, with every `assert_comm_ok` report it
+    makes.
     Returns (loaded stacked, (stacked, comm, info), reports)."""
     st, comm = _loaded_input(tmp)
     real_check = t_dist.chkcomm.assert_comm_ok
@@ -885,14 +966,22 @@ def _input_run(tmp):
         checks.append(real_check(*a, **k))
         return checks[-1]
 
+    P = t_api.Param
+    pm = t_api.ParMesh(device="cpu")
+    pm.stacked, pm.comm = st, comm
+    for p, v in ((P.IPARAM_niter, 2), (P.IPARAM_nparts, 4),
+                 (P.IPARAM_nobalancing, 0), (P.IPARAM_debug, 1),
+                 (P.IPARAM_meshSize, 16)):
+        pm.set_iparameter(p, v)
+    pm.opts.max_sweeps = 6  # no Param of its own, as in the JAX tests
+    assert pm.opts == t_dist.DistOptions(**_case_options("input"))
     t_dist.chkcomm.assert_comm_ok = counted
     try:
-        run = t_dist.adapt_stacked_input(
-            st, comm, t_dist.DistOptions(**_case_options("input")),
-            device="cpu")
+        status = pm.parmmglib_distributed()
     finally:
         t_dist.chkcomm.assert_comm_ok = real_check
-    return st, run, checks
+    assert status == 0, pm.info
+    return st, (pm.stacked, pm.comm, pm.info), checks
 
 
 def _check_case(r, run, case):
